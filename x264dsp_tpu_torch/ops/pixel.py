@@ -1,0 +1,51 @@
+"""Pixel metrics — port of x264dsp_tpu/ops/pixel.py (SAD and SATD of
+common/pixel.c), int32 over arbitrary leading batch dims."""
+
+from __future__ import annotations
+
+import torch
+
+
+def sad(a, b):
+    """SAD over the last two dims: (..., H, W) -> (...,) int32."""
+    d = a.to(torch.int32) - b.to(torch.int32)
+    return d.abs().sum(dim=(-1, -2), dtype=torch.int32)
+
+
+def _hadamard_abs(d4):
+    """(..., 4, 4) diff blocks -> (...,) sum of |H . d . H^T| with the
+    pixel.c butterfly order H = [[1,1,1,1],[1,-1,1,-1],[1,1,-1,-1],
+    [1,-1,-1,1]]."""
+    def butterfly(x0, x1, x2, x3):
+        return (x0 + x1 + x2 + x3, x0 - x1 + x2 - x3,
+                x0 + x1 - x2 - x3, x0 - x1 - x2 + x3)
+
+    rows = butterfly(*(d4[..., i, :] for i in range(4)))   # combine rows
+    t = torch.stack(rows, dim=-2)
+    cols = butterfly(*(t[..., :, j] for j in range(4)))    # combine cols
+    return torch.stack(cols, dim=-1).abs().sum(dim=(-1, -2),
+                                               dtype=torch.int32)
+
+
+def _blocks4(d):
+    """(..., H, W) -> (..., H/4, W/4, 4, 4)."""
+    *lead, H, W = d.shape
+    return d.reshape(*lead, H // 4, 4, W // 4, 4).transpose(-3, -2)
+
+
+def satd(a, b):
+    """SATD with the reference's composition: W >= 8 -> per-8x4 halved
+    sums (x264_pixel_satd_8x4 base, pixel.c:293-330); W == 4 -> per-4x4."""
+    d = a.to(torch.int32) - b.to(torch.int32)
+    W = d.shape[-1]
+    habs = _hadamard_abs(_blocks4(d))            # (..., H/4, W/4)
+    if W >= 8:
+        pairs = habs.reshape(habs.shape[:-1] + (W // 8, 2)).sum(
+            -1, dtype=torch.int32)
+        return (pairs >> 1).sum(dim=(-1, -2), dtype=torch.int32)
+    return (habs >> 1).sum(dim=(-1, -2), dtype=torch.int32)
+
+
+def satd_4x4(a, b):
+    """(..., 4, 4) -> (...,) — pixel_satd_4x4 (common/pixel.c:267-291)."""
+    return _hadamard_abs(a.to(torch.int32) - b.to(torch.int32)) >> 1
