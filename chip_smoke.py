@@ -1,17 +1,29 @@
 """Smoke run of the PyTorch / CUDA port on one GPU: python3 chip_smoke.py
 
 Phases (any failure exits non-zero):
-  1. setup: the card's name and power limit, the CUDA kernel build;
+  1. setup: the card's name and power limit, the CUDA kernel build (one
+     nvcc per source, all started together);
   2. each hand-written kernel (K1 SAD surface, K2a/K2b MC windows, K3
-     deblock) against its plain PyTorch version at the 1920x1088 main-path
-     shapes (R = 16, S = 8), exact equality, with CUDA-event times;
-  3. the BatchEncoder on the GPU against the same on the CPU, on a small
-     64x48 clip (S = 2, keyint 4, 6 frames): identical Annex-B bytes;
+     deblock, K4 quadrant SAD surfaces) against its plain PyTorch version
+     at the 1920x1088 shapes (R = 16, S = 8), exact equality, with
+     CUDA-event times, the least time the card could take for the same
+     work (bound_ms) and, where one PyTorch call computes the same
+     function, that call's time (library_ms);
+  3. the BatchEncoder on the GPU against the same on the CPU: the main
+     path on a 64x48 clip and faster-1ref (HEX, subme 4, partitions) on a
+     64x64 split-motion clip (S = 2, keyint 4, 6 frames each): identical
+     Annex-B bytes;
   4. the main path: BatchEncoder at 1920x1088, S = 8, QP 26, keyint 50,
-     CAVLC, one I slot and four P slots of a synthetic clip; every kernel's
-     launch counter must be above 0; prints fps and the per-stage split.
-The line before the last is the kernels' JSON record; the last line is
-{"ok": true, "device": {...}}. Imports nothing of JAX.
+     CAVLC, DIA, subme 1, one I slot and four P slots of a synthetic clip;
+     prints fps and the per-stage split;
+  5. faster-1ref: the same BatchEncoder with HEX, subme 4 and the
+     16x8/8x16/8x8 partitions, one I slot and three P slots of a
+     split-motion clip, unprofiled; prints fps and the partition counts.
+Phases 4 and 5 each set the launch counters to 0 just before they drive
+the encoder and read them just after; a kernel of the path that was
+never launched fails the run. The line before the last is the kernels'
+JSON record; the last line is {"ok": true, "device": {...}}. Imports
+nothing of JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -27,6 +39,11 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 W, H, S_MAIN, QP, KEYINT = 1920, 1088, 8, 26, 50
 R = 16
+# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM bytes/s, and
+# int32 operations/s outside the tensor cores: 132 SMs x 64 int32 lanes x
+# 1.98 GHz, half the fp32 rate of 67 TFLOP/s (132 x 128 lanes x 2 x 1.98)
+HBM_BYTES_S = 3.35e12
+INT32_OPS_S = 132 * 64 * 1.98e9
 
 
 def fail(msg: str) -> None:
@@ -76,10 +93,23 @@ def max_err(a, b) -> int:
     return int((a.long() - b.long()).abs().max().item())
 
 
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def bound(moved: int, int_ops: int):
+    """(ms, "bytes" or "operations"): the least time for `moved` bytes
+    (each input read once, each output written once) and `int_ops` int32
+    operations on the card's peak rates."""
+    t_bytes = moved / HBM_BYTES_S * 1e3
+    t_ops = int_ops / INT32_OPS_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def kernel_checks():
-    """Phase 2: every kernel against its plain version, main-path shapes."""
+    """Phase 2: every kernel against its plain version, full-size shapes."""
     import torch
-    from x264dsp_tpu.ops.tables import CHROMA_QP_TABLE
+    from x264dsp_tpu_torch.ops.tables import CHROMA_QP_TABLE
     from x264dsp_tpu_torch.ops import deblock as DB
     from x264dsp_tpu_torch.ops import mc as MC
     from x264dsp_tpu_torch.ops import mcgather as MG
@@ -88,6 +118,7 @@ def kernel_checks():
     rng = np.random.default_rng(2024)
     mb_w, mb_h = W // 16, H // 16
     S = S_MAIN
+    n = 2 * R + 1
     rec = []
 
     def t(a, dtype=torch.int32):
@@ -101,21 +132,56 @@ def kernel_checks():
     refc = MC.pad_chroma(t(rng.integers(0, 256, (S, H // 2, W // 2)),
                            torch.uint8)).contiguous()
 
+    # the library calls: one strided view of the padded planes and one
+    # copy with the uint8 conversion (never called by the port)
+    def luma_lib():
+        _, _, Hp, Wp = ref4.shape
+        o = MC.PAD_MC - MG.M_LUMA
+        v = ref4.as_strided(
+            (S, mb_h, mb_w, 4, MG.WIN_L, MG.WIN_L),
+            (4 * Hp * Wp, 16 * Wp, 16, Hp * Wp, Wp, 1), o * Wp + o)
+        return v.to(torch.uint8).reshape(S, mb_h * mb_w, 4, MG.WIN_L,
+                                         MG.WIN_L)
+
+    def chroma_lib():
+        _, Hc, Wc = refc.shape
+        o = MC.PAD_MC // 2 - MG.M_CHROMA
+        v = refc.as_strided((S, mb_h, mb_w, MG.WIN_C, MG.WIN_C),
+                            (Hc * Wc, 8 * Wc, 8, Wc, 1), o * Wc + o)
+        return v.to(torch.uint8).reshape(S, mb_h * mb_w, MG.WIN_C, MG.WIN_C)
+
+    # a subtract-absolute and an add per pixel and full-pel offset
+    sad_ops = 2 * S * H * W * n * n
+    sad_in = nbytes(fenc, strips)
+    win_l = S * mb_h * mb_w * 4 * MG.WIN_L ** 2        # uint8 out
+    win_c = S * mb_h * mb_w * MG.WIN_C ** 2
+    # name, source, TPU kernel, kernel, plain, library call or None,
+    # kernel reps, plain reps, (bytes moved, int32 operations)
     cases = [
         ("sad_surface16", "x264dsp_tpu_torch/csrc/me_sad.cu",
          "x264dsp_tpu/ops/pallas/me_sad.py:138",
          lambda: me_sad.sad_cost_surface16_lanes_cuda(fenc, strips, mb_w,
                                                       mb_h, R),
          lambda: me_sad.sad_cost_surface16_lanes_plain(fenc, strips, mb_w,
-                                                       mb_h, R), 10, 1),
+                                                       mb_h, R),
+         None, 10, 1, (sad_in + 4 * S * mb_h * mb_w * n * n, sad_ops)),
+        ("sad_surfaces_8x8", "x264dsp_tpu_torch/csrc/me_sad.cu",
+         "x264dsp_tpu/ops/pallas/me_sad.py:72",
+         lambda: me_sad.sad_cost_surfaces_8x8_cuda(fenc, strips, mb_w,
+                                                   mb_h, R),
+         lambda: me_sad.sad_cost_surfaces_8x8_plain(fenc, strips, mb_w,
+                                                    mb_h, R),
+         None, 10, 1, (sad_in + 16 * S * mb_h * mb_w * n * n, sad_ops)),
         ("luma_windows", "x264dsp_tpu_torch/csrc/windows.cu",
          "x264dsp_tpu/ops/pallas/windows.py:30",
          lambda: MG.luma_windows_cuda(ref4, mb_w, mb_h),
-         lambda: MG.luma_windows_plain(ref4, mb_w, mb_h), 10, 3),
+         lambda: MG.luma_windows_plain(ref4, mb_w, mb_h), luma_lib, 10, 3,
+         (nbytes(ref4) + win_l, 0)),
         ("chroma_windows", "x264dsp_tpu_torch/csrc/windows.cu",
          "x264dsp_tpu/ops/pallas/windows.py:68",
          lambda: MG.chroma_windows_cuda(refc, mb_w, mb_h),
-         lambda: MG.chroma_windows_plain(refc, mb_w, mb_h), 10, 3),
+         lambda: MG.chroma_windows_plain(refc, mb_w, mb_h), chroma_lib, 10,
+         3, (nbytes(refc) + win_c, 0)),
     ]
     # K3: a P-like case (no intra MBs, random bS 0..2, skips) and an
     # I-like case (every MB intra, bS 3), per-MB QP grids
@@ -134,26 +200,37 @@ def kernel_checks():
     i_args = (y, u, v, t(np.full(grid + (2, 4, 4), 3)), t(np.ones(grid)),
               t(np.zeros(grid)), t(qp), t(qpc), 0, 0, mb_w, mb_h)
     for tag, args in (("P", p_args), ("I", i_args)):
+        # bytes only: the planes read and written once, the grids read
+        # once; the filter arithmetic is a few operations per edge sample
+        moved = nbytes(*args[:8]) + nbytes(y, u, v)
         cases.append((f"deblock[{tag}]", "x264dsp_tpu_torch/csrc/deblock.cu",
                       "x264dsp_tpu/ops/pallas/deblock_skew.py:258",
                       lambda a=args: DB.deblock_frame_cuda(*a),
-                      lambda a=args: DB.deblock_frame_plain(*a), 10, 1))
+                      lambda a=args: DB.deblock_frame_plain(*a), None, 10, 1,
+                      (moved, 0)))
 
-    for name, src, replaces, kern, plain, reps, preps in cases:
+    for name, src, replaces, kern, plain, lib, reps, preps, work in cases:
         got = kern()
         want = plain()
         torch.cuda.synchronize()
         err = max_err(got, want)
+        if lib is not None and max_err(lib(), want) != 0:
+            fail(f"the library call for {name} computes another function")
         del got, want
         ms = time_cuda(kern, reps)
         plain_ms = time_cuda(plain, preps)
+        library_ms = time_cuda(lib, reps) if lib is not None else None
+        bound_ms, bound_by = bound(*work)
         print(f"kernel {name:16s} max_abs_err {err}  {ms:9.3f} ms  "
-              f"plain {plain_ms:10.3f} ms")
+              f"plain {plain_ms:10.3f} ms  library "
+              + (f"{library_ms:.3f} ms" if lib is not None else "none")
+              + f"  bound {bound_ms:.3f} ms ({bound_by})")
         if err != 0:
             fail(f"kernel {name} disagrees with its plain version")
         rec.append(dict(name=name, route="cuda", source=src,
                         replaces=replaces, max_abs_err=err, ms=ms,
-                        plain_ms=plain_ms))
+                        plain_ms=plain_ms, bound_ms=bound_ms,
+                        bound_by=bound_by, library_ms=library_ms))
     return rec
 
 
@@ -174,9 +251,9 @@ def small_clip(w, h, n, seed):
 
 def encode(be, batches):
     """Run stacked (y, u, v) batches through a BatchEncoder; returns the
-    per-stream byte streams and the per-slot deblocked recon planes, as
-    the encoder's own device tensors (kept, not copied: no host transfer
-    or sync inside a timed run)."""
+    per-stream byte streams, the per-slot deblocked recon planes, as the
+    encoder's own device tensors (kept, not copied: no host transfer or
+    sync inside a timed run), and the encoder's summary."""
     import torch
     streams = [b""] * be.S
     recons = []
@@ -187,36 +264,93 @@ def encode(be, batches):
         if out is not None:
             for s, nl in enumerate(out):
                 streams[s] += b"".join(n.payload for n in nl)
-    be.close()
+    summary = be.close()
     if be.device.type == "cuda":
         torch.cuda.synchronize()
-    return streams, recons
+    return streams, recons, summary
+
+
+def n_partitioned(summary) -> int:
+    return sum(summary["mb_types"].get(k, 0)
+               for k in ("P_16x8", "P_8x16", "P_8x8"))
 
 
 def card_vs_cpu():
-    """Phase 3: identical bytes from the GPU and the CPU BatchEncoder."""
+    """Phase 3: identical bytes from the GPU and the CPU BatchEncoder, for
+    the main path and for faster-1ref."""
     import torch
     import x264dsp_tpu_torch as xtt
-    from x264dsp_tpu_torch.tools.mainpath import main_path_param
-    w, h, S, n = 64, 48, 2, 6
-    clips = [small_clip(w, h, n, 11 + s) for s in range(S)]
-    batches = [tuple(torch.from_numpy(np.stack([clips[s][t][i]
-                                                for s in range(S)]))
-                     for i in range(3)) for t in range(n)]
-    out = {}
-    for dev in ("cuda", "cpu"):
-        be = xtt.BatchEncoder(main_path_param(w, h, 26, 4), S, device=dev)
-        out[dev], _ = encode(be, batches)
-    same = out["cuda"] == out["cpu"]
-    print(f"card vs CPU, 64x48 S=2 keyint 4, 6 frames: bytes "
-          f"{[len(b) for b in out['cuda']]} identical={same}")
-    if not same or not all(out["cpu"]):
-        fail("the card's Annex-B bytes differ from the CPU's")
+    from x264dsp_tpu_torch.tools.mainpath import (faster_1ref_param,
+                                                  main_path_param,
+                                                  split_motion_clip)
+    S, n = 2, 6
+
+    def stacked(clips):
+        return [tuple(torch.from_numpy(np.stack([clips[s][t][i]
+                                                 for s in range(S)]))
+                      for i in range(3)) for t in range(n)]
+    cpu = torch.device("cpu")
+    split = [split_motion_clip(64, 64, cpu, seed) for seed in (11, 13)]
+    configs = (
+        ("main path", 64, 48, main_path_param,
+         stacked([small_clip(64, 48, n, 11 + s) for s in range(S)])),
+        ("faster-1ref", 64, 64, faster_1ref_param,
+         stacked([[tuple(p.numpy() for p in f(t)) for t in range(n)]
+                  for f in split])))
+    for label, w, h, make, batches in configs:
+        out = {}
+        for dev in ("cuda", "cpu"):
+            be = xtt.BatchEncoder(make(w, h, 26, 4), S, device=dev)
+            streams, _, summary = encode(be, batches)
+            out[dev] = streams
+        same = out["cuda"] == out["cpu"]
+        print(f"card vs CPU, {label} {w}x{h} S={S} keyint 4, {n} frames: "
+              f"bytes {[len(b) for b in out['cuda']]} identical={same}, "
+              f"partitioned MBs {n_partitioned(summary)}")
+        if not same or not all(out["cpu"]):
+            fail(f"the card's Annex-B bytes differ from the CPU's ({label})")
 
 
 def psnr(a, b) -> float:
     mse = float(np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2))
     return 99.0 if mse == 0 else 10 * np.log10(255.0 ** 2 / mse)
+
+
+def drive(label, param, batches, path_kernels):
+    """Drive one path through the BatchEncoder on the card, unprofiled:
+    the launch counters are set to 0 just before and read just after.
+    Fails unless every kernel of the path launched, every stream is
+    non-empty and the worst luma PSNR is at least 30 dB. Returns the
+    launches and the encoder's summary."""
+    import torch
+    import x264dsp_tpu_torch as xtt
+    S = batches[0][0].shape[0]
+    torch.cuda.synchronize()
+    xtt.reset_kernel_launches()
+    be = xtt.BatchEncoder(param, S)
+    t0 = time.perf_counter()
+    streams, recons, summary = encode(be, batches)
+    wall = time.perf_counter() - t0
+    launches = xtt.kernel_launches()
+    print(f"{label} {W}x{H} S={S} QP {QP}: 1 I + {len(batches) - 1} P slots "
+          f"in {wall:.3f} s = {S * len(batches) / wall:.3f} fps "
+          f"(bytes/stream {[len(b) for b in streams]})")
+    print(f"kernel launches in {label}: {launches}")
+    print(f"{label} MB types: {summary['mb_types']}")
+    missing = [k for k in path_kernels if launches[k] <= 0]
+    if missing:
+        fail(f"kernels of {label} never launched: {missing}")
+    # output check: every stream coded, recon close to the source
+    worst = 99.0
+    for t, (ry, _, _) in enumerate(recons):
+        ry, src = ry.cpu().numpy(), batches[t][0].cpu().numpy()
+        for s in range(S):
+            worst = min(worst, psnr(ry[s], src[s]))
+    print(f"{label} recon: worst luma PSNR {worst:.2f} dB over "
+          f"{len(recons)} slots x {S} streams")
+    if worst < 30.0 or min(len(b) for b in streams) == 0:
+        fail(f"{label} output is wrong (empty stream or PSNR < 30 dB)")
+    return launches, summary
 
 
 def main_path(n_p: int = 4):
@@ -226,37 +360,15 @@ def main_path(n_p: int = 4):
     from x264dsp_tpu_torch.tools.mainpath import (main_path_param,
                                                   stacked_slot, synth_clip)
     frame = synth_clip(W, H, torch.device("cuda"))
-    S = S_MAIN
-    batches = [stacked_slot(frame, t, S) for t in range(1 + n_p)]
+    batches = [stacked_slot(frame, t, S_MAIN) for t in range(1 + n_p)]
     param = main_path_param(W, H, QP, KEYINT)
-    torch.cuda.synchronize()
-
-    xtt.reset_kernel_launches()
-    be = xtt.BatchEncoder(param, S, device="cuda")
-    t0 = time.perf_counter()
-    streams, recons = encode(be, batches)
-    wall = time.perf_counter() - t0
-    launches = xtt.kernel_launches()
-    print(f"main path 1920x1088 S={S} QP {QP}: 1 I + {n_p} P slots in "
-          f"{wall:.3f} s = {S * (1 + n_p) / wall:.3f} fps "
-          f"(bytes/stream {[len(b) for b in streams]})")
-    print(f"kernel launches in the main path: {launches}")
-    if min(launches.values()) <= 0:
-        fail("a kernel of the main path was never launched")
-    # output check: every stream coded, recon close to the source
-    worst = 99.0
-    for t, (ry, _, _) in enumerate(recons):
-        ry, src = ry.cpu().numpy(), batches[t][0].cpu().numpy()
-        for s in range(S):
-            worst = min(worst, psnr(ry[s], src[s]))
-    print(f"main path recon: worst luma PSNR {worst:.2f} dB over "
-          f"{len(recons)} slots x {S} streams")
-    if worst < 30.0 or min(len(b) for b in streams) == 0:
-        fail("main path output is wrong (empty stream or PSNR < 30 dB)")
+    launches, _ = drive("main path", param, batches,
+                        ("sad_surface16", "luma_windows", "chroma_windows",
+                         "deblock"))
 
     # the same slots once more with stage timing (synchronizes the device
     # at each stage and serializes the entropy pipeline)
-    be = xtt.BatchEncoder(param, S, device="cuda", profile=True)
+    be = xtt.BatchEncoder(param, S_MAIN, profile=True)
     encode(be, batches)
     for kind, name in ((2, "I"), (0, "P")):
         rows = [tm for st, tm in be.slot_times if st == kind]
@@ -268,6 +380,24 @@ def main_path(n_p: int = 4):
         print(f"{name} slot ms (mean of {len(rows)}): "
               + " ".join(f"{k} {v:.2f}" for k, v in avg.items())
               + f" | total {total:.2f}")
+    return launches
+
+
+def faster_path(n_p: int = 3):
+    """Phase 5: faster-1ref (HEX, subme 4, partitions) at 1080p, 8
+    streams, on the split-motion clip, unprofiled (its stage split comes
+    from tools/profile_slot.py)."""
+    import torch
+    from x264dsp_tpu_torch.tools.mainpath import (faster_1ref_param,
+                                                  split_motion_clip,
+                                                  stacked_slot)
+    frame = split_motion_clip(W, H, torch.device("cuda"))
+    batches = [stacked_slot(frame, t, S_MAIN) for t in range(1 + n_p)]
+    launches, summary = drive(
+        "faster-1ref", faster_1ref_param(W, H, QP, KEYINT), batches,
+        ("sad_surfaces_8x8", "luma_windows", "chroma_windows", "deblock"))
+    if n_partitioned(summary) <= 0:
+        fail("faster-1ref coded no 16x8, 8x16 or 8x8 MB")
     return launches
 
 
@@ -291,6 +421,8 @@ def main() -> None:
     kernels = kernel_checks()
     card_vs_cpu()
     launches = main_path()
+    # K4 runs only on the partition path: its count comes from phase 5
+    launches["sad_surfaces_8x8"] = faster_path()["sad_surfaces_8x8"]
     for k in kernels:
         k["launches"] = launches[k["name"].split("[")[0]]
     if "jax" in sys.modules:

@@ -6,6 +6,8 @@ must be identical and each stream must decode (tools/h264_decode.py) to
 the port's own reconstruction.
 """
 
+import inspect
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -40,8 +42,10 @@ def _clip(seed):
     return frames
 
 
-def _params():
-    p = xt.param_default()
+def _params(pkg=xtt):
+    """The test settings on pkg's own param_default() (the port's unless
+    the JAX package is given)."""
+    p = pkg.param_default()
     p.i_width, p.i_height = W, H
     p.b_cabac = 0
     p.rc.i_rc_method = P.RC_CQP
@@ -73,7 +77,7 @@ def encoded():
     xtt.reset_kernel_launches()
     port = _run(xtt.BatchEncoder(_params(), S, device="cpu"), clips)
     launches = xtt.kernel_launches()
-    jax_run = _run(xt.BatchEncoder(_params(), S), clips)
+    jax_run = _run(xt.BatchEncoder(_params(xt), S), clips)
     return port, jax_run, launches
 
 
@@ -114,15 +118,44 @@ def test_package_imports_no_jax():
     assert res.stdout.strip() == "False"
 
 
+def test_port_imports_nothing_of_the_jax_package():
+    """After importing every module of the port and chip_smoke (without
+    running it), no x264dsp_tpu module is loaded."""
+    code = ("import sys, pkgutil, importlib, x264dsp_tpu_torch as m; "
+            "[importlib.import_module(i.name) for i in pkgutil.walk_packages("
+            "m.__path__, 'x264dsp_tpu_torch.')]; import chip_smoke; "
+            "print([k for k in sys.modules "
+            "if k.split('.')[0] == 'x264dsp_tpu'])")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "[]"
+
+
+def test_no_file_of_the_port_imports_the_jax_package():
+    """No source of the port and not chip_smoke.py names x264dsp_tpu (as
+    opposed to x264dsp_tpu_torch) in an import."""
+    pattern = re.compile(r"^\s*(from|import)\s+x264dsp_tpu(\.|\s|$)",
+                         re.MULTILINE)
+    files = sorted((REPO / "x264dsp_tpu_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    assert len(files) > 20
+    offenders = [str(f) for f in files if pattern.search(f.read_text())]
+    assert offenders == []
+
+
 def test_cuda_device_without_gpu_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         xtt.BatchEncoder(_params(), S, device="cuda")
 
 
-def test_cpu_is_used_only_when_asked():
-    with pytest.raises(TypeError):
-        xtt.BatchEncoder(_params(), S)          # no default device
+def test_cpu_is_used_only_when_asked(monkeypatch):
+    default = inspect.signature(xtt.BatchEncoder).parameters["device"]
+    assert default.default == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        xtt.BatchEncoder(_params(), S)          # the default is the card
     assert xtt.BatchEncoder(_params(), S, device="cpu").device == \
         torch.device("cpu")
     with pytest.raises(ValueError):
@@ -131,7 +164,8 @@ def test_cpu_is_used_only_when_asked():
 
 @pytest.mark.parametrize("change", [
     {"b_cabac": 1}, {"i_frame_reference": 2}, {"i_slice_count": 2},
-    {"analyse.i_me_method": P.ME_HEX}, {"analyse.i_subpel_refine": 2},
+    {"analyse.i_me_method": P.ME_UMH}, {"analyse.i_me_method": P.ME_ESA},
+    {"analyse.i_subpel_refine": 0},
     {"analyse.i_noise_reduction": 100}, {"i_cqm_preset": 1},
     {"rc.i_rc_method": P.RC_CRF}])
 def test_validation_errors(change):
@@ -142,7 +176,7 @@ def test_validation_errors(change):
     for name in parents:
         obj = getattr(obj, name)
     setattr(obj, leaf, val)
-    with pytest.raises(P.ValidationError):
+    with pytest.raises(xtt.ValidationError):
         xtt.BatchEncoder(p, S, device="cpu")
 
 

@@ -46,12 +46,28 @@ def _case(cuda, seed=0, S=3):
 def test_sad_surface_kernel_matches_plain(cuda):
     c = _case(cuda)
     strips = TSAD.make_ref_strips(c["ref4"][:, 0], TMC.PAD_MC, MB_W, MB_H, R)
-    n0 = TSAD.launches
+    n0 = TSAD.launches["sad_surface16"]
     got = TSAD.sad_cost_surface16_lanes(c["fenc"], strips, MB_W, MB_H, R)
     want = TSAD.sad_cost_surface16_lanes_plain(c["fenc"], strips, MB_W, MB_H,
                                                R)
     assert torch.equal(got, want)
-    assert TSAD.launches == n0 + 1
+    assert TSAD.launches["sad_surface16"] == n0 + 1
+
+
+@pytest.mark.gpu
+def test_sad_surfaces_8x8_kernel_matches_plain(cuda):
+    """K4 against its plain version, and its quadrant sums against K1."""
+    c = _case(cuda, 5)
+    strips = TSAD.make_ref_strips(c["ref4"][:, 0], TMC.PAD_MC, MB_W, MB_H, R)
+    n0 = TSAD.launches["sad_surfaces_8x8"]
+    got = TSAD.sad_cost_surfaces_8x8(c["fenc"], strips, MB_W, MB_H, R)
+    torch.cuda.synchronize()
+    assert TSAD.launches["sad_surfaces_8x8"] == n0 + 1
+    want = TSAD.sad_cost_surfaces_8x8_plain(c["fenc"], strips, MB_W, MB_H, R)
+    assert torch.equal(got, want)
+    lanes = TSAD.sad_cost_surface16_lanes(c["fenc"], strips, MB_W, MB_H, R)
+    assert torch.equal(got.sum((3, 4), dtype=torch.int32),
+                       lanes.permute(0, 1, 4, 2, 3))
 
 
 @pytest.mark.gpu
@@ -100,24 +116,30 @@ def test_wrappers_reject_bad_arguments(cuda):
     with pytest.raises(ValueError):
         TSAD.sad_cost_surface16_lanes_cuda(c["fenc"].cpu(), strips, MB_W,
                                            MB_H, R)
+    with pytest.raises(ValueError):
+        TSAD.sad_cost_surfaces_8x8_cuda(c["fenc"], strips[:, :, 1:], MB_W,
+                                        MB_H, R)
 
 
 @pytest.mark.gpu
 def test_batch_encoder_counts_kernel_launches(cuda):
-    """A CUDA BatchEncoder I P P run launches every kernel."""
+    """A CUDA BatchEncoder I P P run launches every kernel of its path:
+    the main path K1, K2a, K2b and K3; faster-1ref (partitions) K4 in
+    place of K1."""
+    from x264dsp_tpu_torch.tools.mainpath import (faster_1ref_param,
+                                                  main_path_param)
     S, w, h = 2, 64, 48
-    p = xtt.param_default()
-    p.i_width, p.i_height = w, h
-    p.b_cabac = 0
-    p.rc.i_rc_method = xtt.RC_CQP
-    p.i_keyint_max = 8
     rng = np.random.default_rng(4)
-    xtt.reset_kernel_launches()
-    be = xtt.BatchEncoder(p, S, device="cuda")
-    for _ in range(3):
-        planes = tuple(torch.as_tensor(rng.integers(
-            0, 256, (S, hh, ww)).astype(np.uint8))
-            for hh, ww in ((h, w), (h // 2, w // 2), (h // 2, w // 2)))
-        be.encode_batch(planes)
-    be.close()
-    assert all(n > 0 for n in xtt.kernel_launches().values())
+    k1, k4 = "sad_surface16", "sad_surfaces_8x8"
+    for make, off in ((main_path_param, k4), (faster_1ref_param, k1)):
+        xtt.reset_kernel_launches()
+        be = xtt.BatchEncoder(make(w, h, 26, 8), S)
+        for _ in range(3):
+            planes = tuple(torch.as_tensor(rng.integers(
+                0, 256, (S, hh, ww)).astype(np.uint8))
+                for hh, ww in ((h, w), (h // 2, w // 2), (h // 2, w // 2)))
+            be.encode_batch(planes)
+        be.close()
+        launches = xtt.kernel_launches()
+        assert launches.pop(off) == 0
+        assert all(n > 0 for n in launches.values()), launches

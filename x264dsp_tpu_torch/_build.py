@@ -1,10 +1,12 @@
 """Build and load the hand-written CUDA kernels of ``csrc/``.
 
-All ``csrc/*.cu`` files compile with ``nvcc`` into ONE shared library
-with a plain C interface at first use (no PyTorch headers, so the build
-takes seconds), which ``ctypes`` loads. The library lands in
-``build/kernels/`` at the repo root (listed in ``.gitignore``), named by
-a hash of the sources so an edited kernel never loads a stale build.
+Each ``csrc/*.cu`` file compiles with its own ``nvcc`` into a shared
+library with a plain C interface at first use (no PyTorch headers, so a
+build takes seconds); the compilers of all sources start together and
+run in parallel, and ``ctypes`` loads the libraries. They land in
+``build/kernels/`` at the repo root (listed in ``.gitignore``), each
+named by a hash of its source so an edited kernel never loads a stale
+build.
 
 Every C entry point takes raw device pointers plus the CUDA stream and
 returns ``cudaGetLastError()``; :func:`check` turns a nonzero code into
@@ -30,12 +32,20 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C signatures: every pointer and the stream as c_void_p, ints as c_int
+# C signatures by source file: every pointer and the stream as c_void_p,
+# ints as c_int
 SIGNATURES = {
-    "x264t_sad_surface16": (_P, _P, _P, _I, _I, _I, _I, _P),
-    "x264t_luma_windows": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    "x264t_chroma_windows": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    "x264t_deblock": (_P,) * 9 + (_I,) * 5 + (_P,),
+    "me_sad.cu": {
+        "x264t_sad_surface16": (_P, _P, _P, _I, _I, _I, _I, _P),
+        "x264t_sad_surfaces_8x8": (_P, _P, _P, _I, _I, _I, _I, _P),
+    },
+    "windows.cu": {
+        "x264t_luma_windows": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+        "x264t_chroma_windows": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    },
+    "deblock.cu": {
+        "x264t_deblock": (_P,) * 9 + (_I,) * 5 + (_P,),
+    },
 }
 
 _lock = threading.Lock()
@@ -57,41 +67,59 @@ def _nvcc() -> str:
                        "toolkit (set CUDA_HOME)")
 
 
-def _build() -> Path:
+def _build() -> dict:
+    """Compile every source that has no library yet, all at once.
+    Returns {source name: library path}."""
     global build_seconds
-    h = hashlib.sha256()
-    sources = sorted(SRC_DIR.glob("*.cu"))
-    for src in sources:
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
-    lib_path = BUILD_DIR / f"libx264dsp_kernels_{h.hexdigest()[:16]}.so"
-    if lib_path.exists():
-        build_seconds = 0.0
-        return lib_path
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sources]]
+    paths, jobs = {}, {}
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError("nvcc failed:\n" + res.stdout + res.stderr)
-    os.replace(tmp, lib_path)          # atomic against a concurrent build
-    build_seconds = time.perf_counter() - t0
-    return lib_path
+    for name in SIGNATURES:
+        src = SRC_DIR / name
+        digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+        lib_path = BUILD_DIR / f"libx264t_{src.stem}_{digest}.so"
+        paths[name] = lib_path
+        if lib_path.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        jobs[name] = (tmp, lib_path, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    errors = []
+    for name, (tmp, lib_path, proc) in jobs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed on {name}:\n{log}")
+        else:
+            os.replace(tmp, lib_path)   # atomic against a concurrent build
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    build_seconds = time.perf_counter() - t0 if jobs else 0.0
+    return paths
 
 
-def lib():
-    """The loaded kernel library (built on first call)."""
+class _Kernels:
+    """The C entry points of all kernel libraries, as attributes."""
+
+    def __init__(self, paths: dict):
+        self.handles = []
+        for name, fns in SIGNATURES.items():
+            handle = ctypes.CDLL(str(paths[name]))
+            self.handles.append(handle)
+            for fn_name, argtypes in fns.items():
+                fn = getattr(handle, fn_name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+                setattr(self, fn_name, fn)
+
+
+def lib() -> _Kernels:
+    """The loaded kernels (built on first call)."""
     global _lib
     with _lock:
         if _lib is None:
-            handle = ctypes.CDLL(str(_build()))
-            for name, argtypes in SIGNATURES.items():
-                fn = getattr(handle, name)
-                fn.argtypes = list(argtypes)
-                fn.restype = ctypes.c_int
-            _lib = handle
+            _lib = _Kernels(_build())
     return _lib
 
 

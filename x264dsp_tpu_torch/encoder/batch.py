@@ -1,5 +1,7 @@
 """Batched multi-stream encoder — port of x264dsp_tpu/encoder/batch.py
-(CQP; the per-stream CRF/ABR of its v2 is not ported yet).
+(CQP; the per-stream CRF/ABR of its v2 is not ported yet). P analysis:
+DIA or HEX full-pel search, subme 1-11, with or without the
+16x8/8x16/8x8 partitions (X264_ANALYSE_PSUB16x16), one reference.
 
 S independent streams encode in lockstep, one batched frame step per
 slot on the chosen device (every tensor has a leading stream axis).
@@ -19,14 +21,13 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from x264dsp_tpu import params as P
-from x264dsp_tpu.api import NAL
-from x264dsp_tpu.encoder.ratecontrol import RateControl
-from x264dsp_tpu.encoder.sets import PPS, SPS
-from x264dsp_tpu.entropy import native
-from x264dsp_tpu.entropy.bitstream import BitWriter, nal_unit
-
+from .. import params as P
+from ..api import NAL
+from ..entropy import native
+from ..entropy.bitstream import BitWriter, nal_unit
 from . import core as C
+from .ratecontrol import RateControl
+from .sets import PPS, SPS
 
 
 def resolve_device(device) -> torch.device:
@@ -41,10 +42,10 @@ def resolve_device(device) -> torch.device:
 
 
 class BatchEncoder:
-    def __init__(self, param: P.Param, n_streams: int, *, device,
-                 profile: bool = False):
-        """S = n_streams lockstep streams on `device` ("cuda" or "cpu";
-        no default, so the CPU runs only when asked for). profile=True
+    def __init__(self, param: P.Param, n_streams: int, *,
+                 device="cuda", profile: bool = False):
+        """S = n_streams lockstep streams on `device`: the GPU unless the
+        caller asks for "cpu"; "cuda" without a GPU raises. profile=True
         synchronizes at each stage and records slot_times."""
         self.param = p = P.validate_parameters(param)
         if p.b_cabac:
@@ -66,15 +67,14 @@ class BatchEncoder:
             raise P.ValidationError("BatchEncoder has no NR")
         if p.i_cqm_preset != P.CQM_FLAT:
             raise P.ValidationError("BatchEncoder v1 is flat-CQM")
-        if min(max(p.analyse.i_me_method, 0), 3) != P.ME_DIA \
-                or p.analyse.inter & P.ANALYSE_PSUB16x16 \
-                or min(max(p.analyse.i_subpel_refine, 0), 11) != 1:
-            raise P.ValidationError("the PyTorch BatchEncoder runs DIA, "
-                                    "subme 1, no sub-16x16 partitions")
-        if native.get_lib() is None:
-            raise RuntimeError("the C++ CAVLC writers did not build "
-                               "(x264dsp_tpu/entropy/native.py)")
+        if min(max(p.analyse.i_me_method, 0), 3) not in (P.ME_DIA, P.ME_HEX):
+            raise P.ValidationError("the PyTorch BatchEncoder runs the DIA "
+                                    "or HEX search (UMH/ESA not ported)")
+        if p.analyse.i_subpel_refine < 1:
+            raise P.ValidationError("the PyTorch BatchEncoder runs subme "
+                                    "1-11 (subme 0 not ported)")
         self.device = resolve_device(device)
+        native.get_lib()        # build the C++ CAVLC writers now, or raise
         self.S = int(n_streams)
         self.sps = SPS.init(p, p.i_sps_id)
         self.pps = PPS.init(p, self.sps, p.i_sps_id)
@@ -124,6 +124,9 @@ class BatchEncoder:
         return dict(mb_w=self.mb_w, mb_h=self.mb_h,
                     me_range=p.analyse.i_me_range,
                     mv_range=p.analyse.i_mv_range,
+                    me_method=min(max(p.analyse.i_me_method, 0), 3),
+                    subme=p.analyse.i_subpel_refine,
+                    partitions=bool(p.analyse.inter & P.ANALYSE_PSUB16x16),
                     dct_decimate=bool(p.analyse.b_dct_decimate),
                     fast_pskip=bool(p.analyse.b_fast_pskip),
                     use_satd=p.analyse.i_subpel_refine > 0,

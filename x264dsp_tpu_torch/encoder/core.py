@@ -6,9 +6,9 @@ does for S lockstep streams, with an explicit leading stream axis on
 every tensor: the I or P frame encode, the decoded-QP scan, the in-loop
 deblock, the half-pel reference planes and the stats vector. The CAVLC
 payload is not packed on the device here: the step hands back the
-syntax tensors that the C++ writers (x264dsp_tpu/entropy/native.py)
-read, and BatchEncoder pulls them to the host. The TPU worker-fault
-split of the reference pyramid (core.py:258-265) has no counterpart.
+syntax tensors that the C++ writers (entropy/native.py) read, and
+BatchEncoder pulls them to the host. The TPU worker-fault split of the
+reference pyramid (core.py:258-265) has no counterpart.
 
 The host helpers below are JAX-free copies of their namesakes in
 x264dsp_tpu/encoder/core.py (which imports JAX), each marked with its
@@ -23,13 +23,12 @@ from collections import defaultdict
 import numpy as np
 import torch
 
-from x264dsp_tpu import params as P
-from x264dsp_tpu.entropy import cavlc
-from x264dsp_tpu.entropy.bitstream import BitWriter
-from x264dsp_tpu.ops.tables import CHROMA_QP_TABLE
-
+from .. import params as P
+from ..entropy import cavlc
+from ..entropy.bitstream import BitWriter
 from ..ops import deblock as DB
 from ..ops import mc as MC
+from ..ops.tables import CHROMA_QP_TABLE
 from . import inter_frame, intra_frame
 
 _I32 = torch.int32
@@ -214,8 +213,8 @@ def eff_qp_scan(syn, qp_mb, slice_qp, is_i: bool):
 def frame_step(cfg: dict, is_p: bool, fy, fu, fv, refs, qp_mb, lam_mb,
                slice_qp: int, clock: StageClock):
     """One batched frame slot. cfg: the static settings (mb_w, mb_h,
-    me_range, mv_range, dct_decimate, fast_pskip, use_satd,
-    i4x4, deblock_on, alpha_off, beta_off, cqpo). fy/fu/fv (S, H, W)
+    me_range, mv_range, me_method, subme, partitions, dct_decimate,
+    fast_pskip, use_satd, i4x4, deblock_on, alpha_off, beta_off, cqpo). fy/fu/fv (S, H, W)
     frames on the device, refs (ref4, refu, refv) for a P slot, qp_mb /
     lam_mb (S, mb_h, mb_w) int32. Returns a dict: syn (device syntax),
     recon (deblocked uint8 planes), planes (next reference planes),
@@ -230,7 +229,8 @@ def frame_step(cfg: dict, is_p: bool, fy, fu, fv, refs, qp_mb, lam_mb,
         syn = inter_frame.encode_p_frame(
             fy, fu, fv, ref4, refu, refv, qp_mb, qpc_mb, lam_mb, mb_w, mb_h,
             cfg["me_range"], cfg["mv_range"], cfg["dct_decimate"],
-            fast_pskip=cfg["fast_pskip"])
+            fast_pskip=cfg["fast_pskip"], me_method=cfg["me_method"],
+            subme=cfg["subme"], partitions=cfg["partitions"])
         stats = torch.cat([_hist(syn["partition"], 4),
                            _hist(syn["ref"], P.REF_MAX)], 1)
     else:

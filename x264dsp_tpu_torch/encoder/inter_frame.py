@@ -1,11 +1,14 @@
-"""P-frame encode over a stream batch — port of the main-path subset of
-x264dsp_tpu/encoder/inter_frame.py: ``encode_p_frame`` with one
-reference, the DIA pattern walk (me_method 0), subme-1 subpel refine,
-the fast P-skip probe, no sub-16x16 partitions.
+"""P-frame encode over a stream batch — port of the BatchEncoder subset
+of x264dsp_tpu/encoder/inter_frame.py: ``encode_p_frame`` with one
+reference, the DIA or HEX pattern walk (me_method 0 or 1), the subpel
+refine of subme 1-11, the fast P-skip probe, and the 16x8/8x16/8x8
+partition analysis.
 
 Every tensor carries a leading stream axis S in place of the JAX vmap.
-The walk reads the SAD surface in kernel K1's lane layout [row, dy, dx,
-mbx]; the JAX CPU path walks the classic layout, and
+Without partitions the walk reads the 16x16 SAD surface in kernel K1's
+lane layout [row, dy, dx, mbx]; with partitions it reads the classic
+layout [mbx, dy, dx] of the K4 quadrant sums. The JAX CPU path walks the
+classic layout, and
 tests/test_me_methods.py::test_lane_walk_twins_match_classic holds the
 two walks equal. Candidate minima update only on a strictly smaller
 cost, in candidate order, as in the JAX code (me.c's COPY*_IF_LT).
@@ -16,10 +19,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import params as P
 from ..ops import deblock as DB
 from ..ops import mc as MC
 from ..ops import mcgather as MG
 from ..ops import me_sad
+from ..ops import pixel as PX
 from ..ops import residual_plane as RP
 from ..ops import transforms as T
 from ..ops.devtab import device_table
@@ -44,7 +49,31 @@ LAMBDA2_TAB = np.array([
     148626, 187257, 235929, 297252, 374514, 471859, 594505, 749029,
     943718, 1189010, 1498059, 1887436], np.int64)
 
+# me.c hex2[] (the radius-2 hexagon), the diamond and the 8-point square
+# (inter_frame.py:305-307)
+_HEX_PTS = ((-2, 0), (-1, 2), (1, 2), (2, 0), (1, -2), (-1, -2))
 _DIA_PTS = ((0, -1), (0, 1), (-1, 0), (1, 0))
+_SQUARE_PTS = _DIA_PTS + ((-1, -1), (-1, 1), (1, -1), (1, 1))
+
+# subpel recipe per subme (inter_frame.py:654, subpel_iterations of
+# me.c:18-33 with the winner refine folded in): subme -> (hpel_iters,
+# qpel_iters, use_satd, try_mvp). The fork has no trellis/psy-RD, so the
+# RD levels 6-11 reduce to the larger iteration budgets.
+SUBME_RECIPE = {
+    0: (0, 0, False, False),
+    1: (1, 1, False, True),
+    2: (1, 1, True, True),
+    3: (1, 2, True, False),
+    4: (1, 3, True, False),
+    5: (1, 4, True, False),
+    6: (2, 2, True, False),
+    7: (2, 2, True, False),
+    8: (4, 10, True, False),
+    9: (4, 10, True, False),
+    10: (4, 10, True, False),
+    11: (4, 10, True, False),
+}
+
 
 def mv_cost(lam, mvx, mvy, mvpx, mvpy):
     bits = device_table(_MVBITS, lam.device)
@@ -123,16 +152,20 @@ def pskip_mv_field(mv_field):
     return torch.where(zero[..., None], 0, mvp)
 
 
-class _LaneSurface:
-    """Reads of the (S, mb_h, n, n, mb_w) SAD surface at per-MB full-pel
-    offsets: the raw cost (legal-range masked) or the cost biased by
-    lambda * mvbits(mv - mvp). Equal to the JAX path's where(ok, surf
-    [+ bias], 1<<28) surfaces read at the same points; out-of-surface
-    points cost 1<<28."""
+class _Surface:
+    """Reads of a full-pel 16x16 SAD surface at per-MB offsets: in K1's
+    lane layout (S, mb_h, n, n, mb_w) or in the classic layout (S, mb_h,
+    mb_w, n, n) of the quadrant sums. Returns the raw cost (legal-range
+    masked) or the cost biased by lambda * mvbits(mv - mvp). Equal to the
+    JAX path's where(ok, surf [+ bias], 1<<28) surfaces read at the same
+    points; out-of-surface points cost 1<<28."""
 
-    def __init__(self, surf, lam, R, lo_x, hi_x, lo_y, hi_y):
-        S, mb_h, n, _, mb_w = surf.shape
-        self.flat = surf.reshape(S, mb_h, n * n, mb_w)
+    def __init__(self, surf, lanes: bool, lam, R, lo_x, hi_x, lo_y, hi_y):
+        S, mb_h = surf.shape[:2]
+        n = 2 * R + 1
+        self.dim = 2 if lanes else 3            # the axis of the offsets
+        shape = (S, mb_h, n * n, -1) if lanes else (S, mb_h, -1, n * n)
+        self.flat = surf.reshape(shape)
         self.lam, self.R, self.n = lam, R, n
         self.lo_x, self.hi_x = lo_x[None, None, :], hi_x[None, None, :]
         self.lo_y, self.hi_y = lo_y[None, :, None], hi_y[None, :, None]
@@ -140,7 +173,8 @@ class _LaneSurface:
     def at(self, bx, by, mvp=None):
         R, n = self.R, self.n
         idx = (by.clamp(-R, R) + R) * n + bx.clamp(-R, R) + R
-        v = torch.gather(self.flat, 2, idx.long()[:, :, None]).squeeze(2)
+        v = torch.gather(self.flat, self.dim,
+                         idx.long().unsqueeze(self.dim)).squeeze(self.dim)
         if mvp is not None:
             v = v + mv_cost(self.lam, bx * 4, by * 4, mvp[..., 0],
                             mvp[..., 1])
@@ -150,10 +184,29 @@ class _LaneSurface:
         return torch.where(ok & inb, v, BIG)
 
 
-def _pattern_walk_lanes(surf: _LaneSurface, mvp, mvp_fp, mvc, me_range):
-    """DIA walk (me.c:237-274) of every MB in lockstep: the MVP costed
-    without bias, the mvc candidates and (0,0) with bias, then up to
-    me_range diamond steps with per-MB stop masks."""
+def _try_candidates(surf: _Surface, mvp, bcost, bx, by, pts, gate):
+    """Strict-less acceptance of the offsets `pts` around the centre at
+    entry, in order (me.c's COPY*_IF_LT chains), on the biased surface;
+    gate (or None) masks the MBs that may move. Returns (bcost, bx, by,
+    moved)."""
+    ox, oy = bx, by
+    for dx, dy in pts:
+        cx, cy = ox + dx, oy + dy
+        c = surf.at(cx, cy, mvp)
+        better = c < bcost if gate is None else (c < bcost) & gate
+        bcost = torch.where(better, c, bcost)
+        bx = torch.where(better, cx, bx)
+        by = torch.where(better, cy, by)
+    return bcost, bx, by, (bx != ox) | (by != oy)
+
+
+def _pattern_walk(surf: _Surface, mvp, mvp_fp, mvc, me_range: int,
+                  method: int):
+    """DIA (me.c:237-274) or HEX (me.c:276-387) walk of every MB in
+    lockstep (_pattern_walk, inter_frame.py:349): the MVP costed without
+    bias, the mvc candidates and (0,0) with bias, then up to me_range
+    diamonds (DIA) or max(me_range >> 1, 1) hexagons (HEX) with per-MB
+    stop masks; HEX ends with one ungated 8-point square refine."""
     R = me_range
     bx = mvp_fp[..., 0].clamp(-R, R)
     by = mvp_fp[..., 1].clamp(-R, R)
@@ -172,19 +225,18 @@ def _pattern_walk_lanes(surf: _LaneSurface, mvp, mvp_fp, mvc, me_range):
     bcost = torch.where(better, zc, bcost)
     bx = torch.where(better, 0, bx)
     by = torch.where(better, 0, by)
+    pts, n_iter = ((_DIA_PTS, me_range) if method == P.ME_DIA
+                   else (_HEX_PTS, max(me_range >> 1, 1)))
     active = torch.ones_like(bx, dtype=torch.bool)
-    for _ in range(me_range):
-        ox, oy = bx, by
-        for dx, dy in _DIA_PTS:
-            cx, cy = ox + dx, oy + dy
-            c = surf.at(cx, cy, mvp)
-            better = (c < bcost) & active
-            bcost = torch.where(better, c, bcost)
-            bx = torch.where(better, cx, bx)
-            by = torch.where(better, cy, by)
-        active = active & ((bx != ox) | (by != oy))
+    for _ in range(n_iter):
+        bcost, bx, by, moved = _try_candidates(surf, mvp, bcost, bx, by, pts,
+                                               active)
+        active = active & moved
         if not bool(active.any()):
             break           # every walk has stopped: later steps no-op
+    if method == P.ME_HEX:
+        bcost, bx, by, _ = _try_candidates(surf, mvp, bcost, bx, by,
+                                           _SQUARE_PTS, None)
     return bx, by, bcost
 
 
@@ -193,31 +245,33 @@ def _neighbour_cands(fp):
             _shift(fp, 1, -1)[0]]
 
 
-def decide_mvs_pattern(surf_lanes, fenc_y, wins4, lam, mb_w: int, mb_h: int,
-                       me_range: int, mv_range: int):
-    """DIA MV decision (decide_mvs_pattern, inter_frame.py:479) on the
-    lane surface (S, mb_h, n, n, mb_w): a zero-MVP walk, then two walks
-    with the median MVP propagated from the previous field, then the
-    subpel refine. Returns (S, mb_h, mb_w, 2) qpel MVs."""
+def decide_mvs_pattern(surf16, lanes: bool, fenc_y, wins4, lam, mb_w: int,
+                       mb_h: int, me_range: int, mv_range: int, method: int,
+                       subme: int):
+    """DIA/HEX MV decision (decide_mvs_pattern, inter_frame.py:479) on the
+    16x16 surface, in K1's lane layout (lanes=True) or the classic layout:
+    a zero-MVP walk, then two walks with the median MVP propagated from
+    the previous field, then the subpel refine. Returns (S, mb_h, mb_w, 2)
+    qpel MVs."""
     R = me_range
-    dev = surf_lanes.device
+    dev = surf16.device
     ranges = make_mv_ranges(mb_w, mb_h, mv_range, dev)
     mvmin_x, mvmax_x, mvmin_y, mvmax_y = ranges
-    surf = _LaneSurface(surf_lanes, lam, R, (mvmin_x >> 2) + 6,
-                        (mvmax_x >> 2) - 6, (mvmin_y >> 2) + 6,
-                        (mvmax_y >> 2) - 6)
-    S = surf_lanes.shape[0]
+    surf = _Surface(surf16, lanes, lam, R, (mvmin_x >> 2) + 6,
+                    (mvmax_x >> 2) - 6, (mvmin_y >> 2) + 6,
+                    (mvmax_y >> 2) - 6)
+    S = surf16.shape[0]
     zero_mvp = torch.zeros((S, mb_h, mb_w, 2), dtype=_I32, device=dev)
-    bx, by, _ = _pattern_walk_lanes(surf, zero_mvp, zero_mvp, None, R)
+    bx, by, _ = _pattern_walk(surf, zero_mvp, zero_mvp, None, R, method)
     for _ in range(2):
         mv_prev = torch.stack([bx * 4, by * 4], -1)
         mvp = mvp_field_parallel(mv_prev)
         mvp_fp = (mvp + 2) >> 2                          # me.c:141-142
         mvc = _neighbour_cands(torch.stack([bx, by], -1))
-        bx, by, bcost = _pattern_walk_lanes(surf, mvp, mvp_fp, mvc, R)
+        bx, by, bcost = _pattern_walk(surf, mvp, mvp_fp, mvc, R, method)
     mv_field = torch.stack([bx * 4, by * 4], -1)
     return subpel_refine_batch(mv_field, bcost, mvp, fenc_y, wins4, lam,
-                               mb_w, mb_h, ranges)
+                               mb_w, mb_h, ranges, subme)
 
 
 def tile_mb(plane, mb_w: int, mb_h: int, mbsize: int):
@@ -232,12 +286,94 @@ def untile_mb(tiles, S: int, mb_w: int, mb_h: int, mbsize: int):
         0, 1, 3, 2, 4).reshape(S, mb_h * mbsize, mb_w * mbsize)
 
 
+class _BlockCost:
+    """Subpel costs of one block shape for all MBs (B = S*mb_h*mb_w): the
+    (bh, bw) block at (sub_y, sub_x) of the MB, motion-compensated from
+    the per-MB windows `wins` (full-pel margin `margin`) at qpel MVs, its
+    SAD or SATD against the source block f_blk (B, bh, bw), plus lambda *
+    mvbits(mv - mvp)."""
+
+    def __init__(self, f_blk, wins, margin, sub_y, sub_x, lam, mvpx, mvpy):
+        self.f, self.wins, self.margin = f_blk, wins, margin
+        self.bh, self.bw = f_blk.shape[1:]
+        self.sub_y, self.sub_x = sub_y, sub_x
+        self.lam, self.mvpx, self.mvpy = lam, mvpx, mvpy
+
+    def at(self, mx, my, satd: bool):
+        blk = MG.mc_luma_batched(self.wins, mx, my, self.bh, self.bw,
+                                 self.sub_y, self.sub_x, self.margin)
+        d = PX.satd(self.f, blk) if satd else PX.sad(self.f, blk)
+        return d + mv_cost(self.lam, mx, my, self.mvpx, self.mvpy)
+
+    def try_mv(self, bcost, bmx, bmy, mx, my, gate):
+        """One SAD candidate, taken where gate and strictly better."""
+        c = self.at(mx, my, False)
+        better = gate & (c < bcost)
+        return (torch.where(better, c, bcost), torch.where(better, mx, bmx),
+                torch.where(better, my, bmy))
+
+    def diamond(self, bcost, bmx, bmy, scale: int, gate, satd: bool):
+        """One 4-candidate diamond around (bmx, bmy), all four on one MC
+        call, accepted in me.c's order where gate and strictly better."""
+        mxs = torch.stack([bmx, bmx, bmx - scale, bmx + scale], 1)
+        mys = torch.stack([bmy - scale, bmy + scale, bmy, bmy], 1)
+        blks = MG.mc_luma_multi(self.wins, mxs, mys, self.bh, self.bw,
+                                self.sub_y, self.sub_x, self.margin)
+        f = self.f[:, None]
+        d = PX.satd(f, blks) if satd else PX.sad(f, blks)
+        for k in range(4):
+            c = d[:, k] + mv_cost(self.lam, mxs[:, k], mys[:, k], self.mvpx,
+                                  self.mvpy)
+            better = gate & (c < bcost)
+            bcost = torch.where(better, c, bcost)
+            bmx = torch.where(better, mxs[:, k], bmx)
+            bmy = torch.where(better, mys[:, k], bmy)
+        return bcost, bmx, bmy
+
+    def diamonds(self, bcost, bmx, bmy, n_iter: int, scale: int, active,
+                 satd: bool, allowed=None):
+        """Up to n_iter diamonds with the per-MB early stop: an MB steps
+        while active (and allowed(bmx, bmy), a bounds test) and stops once
+        a step leaves its centre unchanged."""
+        for _ in range(n_iter):
+            gate = active if allowed is None else active & allowed(bmx, bmy)
+            ox, oy = bmx, bmy
+            bcost, bmx, bmy = self.diamond(bcost, bmx, bmy, scale, gate,
+                                           satd)
+            active = active & ((bmx != ox) | (bmy != oy))
+            if not bool(active.any()):
+                break       # every MB has stopped: later steps no-op
+        return bcost, bmx, bmy
+
+
+def _in_range(lo_x, hi_x, lo_y, hi_y):
+    """Bounds test of the qpel diamonds (me.c:541-581): strictly inside
+    the legal MV range."""
+    return lambda mx, my: ((my > lo_y) & (my < hi_y) & (mx > lo_x)
+                           & (mx < hi_x))
+
+
+def _flat_ranges(ranges, S: int, mb_w: int, mb_h: int):
+    """Per-MB qpel MV ranges flattened to (B,): lo_x, hi_x, lo_y, hi_y."""
+    mvmin_x, mvmax_x, mvmin_y, mvmax_y = ranges
+    B = S * mb_h * mb_w
+    return (mvmin_x[None, None, :].expand(S, mb_h, mb_w).reshape(B),
+            mvmax_x[None, None, :].expand(S, mb_h, mb_w).reshape(B),
+            mvmin_y[None, :, None].expand(S, mb_h, mb_w).reshape(B),
+            mvmax_y[None, :, None].expand(S, mb_h, mb_w).reshape(B))
+
+
 def subpel_refine_batch(mv_field, cost_field, mvp_field, fenc_y, wins4,
-                        lam, mb_w, mb_h, ranges):
-    """Subpel refine at subme 1 (refine_subpel, me.c:466-581): try the
-    MVP's subpel candidate on the full windows, recentre the windows, one
-    half-pel SAD diamond, one quarter-pel SAD diamond. All MBs of all
-    streams at once (B = S*mb_h*mb_w)."""
+                        lam, mb_w, mb_h, ranges, subme: int):
+    """Subpel refine of the 16x16 MVs (_subpel_refine_batch,
+    inter_frame.py:674; refine_subpel, me.c:466-581) with the subme
+    recipe, all MBs of all streams at once (B = S*mb_h*mb_w): the MVP's
+    subpel candidate on the full windows where the recipe tries it, the
+    windows recentred on the best full-pel position, the half-pel SAD
+    diamonds, the SATD re-cost where the recipe switches metric, then
+    the quarter-pel diamonds (one SAD diamond at subme 1)."""
+    hpel_iters, qpel_iters, use_satd, try_mvp = \
+        SUBME_RECIPE[min(max(subme, 0), 11)]
     S = fenc_y.shape[0]
     B = S * mb_h * mb_w
     f = tile_mb(fenc_y.to(_I32), mb_w, mb_h, 16)
@@ -247,58 +383,169 @@ def subpel_refine_batch(mv_field, cost_field, mvp_field, fenc_y, wins4,
     mvpx = mvp_field[..., 0].reshape(B)
     mvpy = mvp_field[..., 1].reshape(B)
     lamf = lam.reshape(B)
-    mvmin_x, mvmax_x, mvmin_y, mvmax_y = ranges
-    lo_x = mvmin_x[None, None, :].expand(S, mb_h, mb_w).reshape(B)
-    hi_x = mvmax_x[None, None, :].expand(S, mb_h, mb_w).reshape(B)
-    lo_y = mvmin_y[None, :, None].expand(S, mb_h, mb_w).reshape(B)
-    hi_y = mvmax_y[None, :, None].expand(S, mb_h, mb_w).reshape(B)
+    lo_x, hi_x, lo_y, hi_y = _flat_ranges(ranges, S, mb_w, mb_h)
+    every = torch.ones((B,), dtype=torch.bool, device=f.device)
 
-    def diamond(wins, margin, bcost, bmx, bmy, scale, gate):
-        mxs = torch.stack([bmx, bmx, bmx - scale, bmx + scale], 1)
-        mys = torch.stack([bmy - scale, bmy + scale, bmy, bmy], 1)
-        blks = MG.mc_luma_multi(wins, mxs, mys, 16, 16, margin=margin)
-        d = (f[:, None] - blks).abs().sum(dim=(2, 3), dtype=_I32)
-        for k in range(4):
-            c = d[:, k] + mv_cost(lamf, mxs[:, k], mys[:, k], mvpx, mvpy)
-            better = gate & (c < bcost)
-            bcost = torch.where(better, c, bcost)
-            bmx = torch.where(better, mxs[:, k], bmx)
-            bmy = torch.where(better, mys[:, k], bmy)
-        return bcost, bmx, bmy
+    if try_mvp and hpel_iters:
+        # the MVP's subpel candidate on the full windows (me.c:484-491)
+        full = _BlockCost(f, wins4, MG.M_LUMA, 0, 0, lamf, mvpx, mvpy)
+        mx = MG.clamp_qpel(_clip(mvpx, lo_x + 2, hi_x - 2))
+        my = MG.clamp_qpel(_clip(mvpy, lo_y + 2, hi_y - 2))
+        bcost, bmx, bmy = full.try_mv(bcost, bmx, bmy, mx, my, every)
 
-    # MVP subpel candidate on the full windows (me.c:484-491)
-    mx = MG.clamp_qpel(_clip(mvpx, lo_x + 2, hi_x - 2))
-    my = MG.clamp_qpel(_clip(mvpy, lo_y + 2, hi_y - 2))
-    blk = MG.mc_luma_batched(wins4, mx, my, 16, 16)
-    c = (f - blk).abs().sum(dim=(1, 2), dtype=_I32) \
-        + mv_cost(lamf, mx, my, mvpx, mvpy)
-    better = c < bcost
-    bcost = torch.where(better, c, bcost)
-    bmx = torch.where(better, mx, bmx)
-    bmy = torch.where(better, my, bmy)
-
-    # recentre on the best full-pel position (extract_windows4)
-    m = 3                       # min(4, (2*1 + 1 + 3)//4 + 2) at subme 1
+    # recentre on the best full-pel position (extract_windows4); m covers
+    # the recipe's drift, capped at 4 (inter_frame.py:753)
+    m = min(4, (2 * hpel_iters + qpel_iters + 3) // 4 + 2)
     base_x = (bmx >> 2).clamp(-(MG.M_LUMA - m), MG.M_LUMA - m)
     base_y = (bmy >> 2).clamp(-(MG.M_LUMA - m), MG.M_LUMA - m)
     wins_s = MG.extract_windows4(wins4, base_x, base_y, 16, 16, m)
     bx4, by4 = base_x * 4, base_y * 4
     bmx, bmy = bmx - bx4, bmy - by4
-    mvpx, mvpy = mvpx - bx4, mvpy - by4
+    cost = _BlockCost(f, wins_s, m, 0, 0, lamf, mvpx - bx4, mvpy - by4)
+    # frame bounds made window-relative, cut to the window's coverage
     cov_lo, cov_hi = -4 * (m - 1), 4 * (m - 1) - 1
     lo_x = torch.clamp(lo_x - bx4, min=cov_lo)
     hi_x = torch.clamp(hi_x - bx4, max=cov_hi)
     lo_y = torch.clamp(lo_y - by4, min=cov_lo)
     hi_y = torch.clamp(hi_y - by4, max=cov_hi)
-    # one half-pel diamond (me.c:494-517)
-    inside = ((bmy - 2 >= cov_lo) & (bmy + 2 <= cov_hi)
-              & (bmx - 2 >= cov_lo) & (bmx + 2 <= cov_hi))
-    bcost, bmx, bmy = diamond(wins_s, m, bcost, bmx, bmy, 2, inside)
-    # one quarter-pel diamond, SAD (subme 1, me.c:565-581)
-    inside = (bmy > lo_y) & (bmy < hi_y) & (bmx > lo_x) & (bmx < hi_x)
-    bcost, bmx, bmy = diamond(wins_s, m, bcost, bmx, bmy, 1, inside)
+
+    def covered(mx, my):
+        return ((my - 2 >= cov_lo) & (my + 2 <= cov_hi)
+                & (mx - 2 >= cov_lo) & (mx + 2 <= cov_hi))
+
+    # half-pel diamonds, SAD (me.c:494-517)
+    bcost, bmx, bmy = cost.diamonds(bcost, bmx, bmy, hpel_iters, 2, every,
+                                    False, covered)
+    if use_satd:
+        # switch metric: re-cost the half-pel best with SATD (me.c:520-524)
+        bcost = cost.at(bmx, bmy, True)
+    inside = _in_range(lo_x, hi_x, lo_y, hi_y)
+    if subme == 1:
+        # one quarter-pel SAD diamond (subme 1, me.c:565-581)
+        bcost, bmx, bmy = cost.diamonds(bcost, bmx, bmy, 1, 1, every, False,
+                                        inside)
+    else:
+        # quarter-pel diamonds, SATD (me.c:541-564)
+        bcost, bmx, bmy = cost.diamonds(bcost, bmx, bmy, qpel_iters, 1,
+                                        every, use_satd, inside)
     return torch.stack([(bmx + bx4).reshape(S, mb_h, mb_w),
                         (bmy + by4).reshape(S, mb_h, mb_w)], -1)
+
+
+def _refine_block_batch(wins4, f_blk, bmx, bmy, bcost, mvpx, mvpy, lam,
+                        ranges_f, sub_y: int, sub_x: int, gate, subme: int):
+    """Subpel refine of one partition block for all MBs
+    (_refine_block_batch, inter_frame.py:1125): on the full windows at the
+    block's offset in the MB, the half-pel diamonds start from `gate` (the
+    MBs whose chosen shape holds this block) with no coverage test, and
+    subme 1 takes one quarter-pel diamond. All arguments (B,)-shaped;
+    returns (bmx, bmy, bcost)."""
+    hpel_iters, qpel_iters, use_satd, try_mvp = \
+        SUBME_RECIPE[min(max(subme, 0), 11)]
+    lo_x, hi_x, lo_y, hi_y = ranges_f
+    cost = _BlockCost(f_blk, wins4, MG.M_LUMA, sub_y, sub_x, lam, mvpx,
+                      mvpy)
+    if try_mvp and hpel_iters:
+        mx = MG.clamp_qpel(_clip(mvpx, lo_x + 2, hi_x - 2))
+        my = MG.clamp_qpel(_clip(mvpy, lo_y + 2, hi_y - 2))
+        bcost, bmx, bmy = cost.try_mv(bcost, bmx, bmy, mx, my, gate)
+    bcost, bmx, bmy = cost.diamonds(bcost, bmx, bmy, hpel_iters, 2, gate,
+                                    False)
+    if use_satd:
+        bcost = cost.at(bmx, bmy, True)
+    n_qpel = 1 if subme == 1 else qpel_iters
+    bcost, bmx, bmy = cost.diamonds(bcost, bmx, bmy, n_qpel, 1, gate,
+                                    use_satd, _in_range(*ranges_f))
+    return bmx, bmy, bcost
+
+
+def decide_partitions(cost8, mv16_field, fenc_y, wins4, lam, mb_w: int,
+                      mb_h: int, me_range: int, mv_range: int, skip_mask,
+                      subme: int):
+    """P partition analysis (decide_partitions, inter_frame.py:1202;
+    x264_mb_analyse_inter_p8x8/p16x8/p8x16, analyse.c:864-1057, and the
+    partition compare :1145-1182). cost8: (S, mb_h, mb_w, 2, 2, n, n)
+    quadrant SADs (K4); mv16_field: the refined 16x16 MVs. Full-pel
+    argmin per block shape around the 16x16 result (first minimum on
+    ties), the min-cost shape in the COPY3_IF_LT order 8x8, 16x8, 8x16,
+    skipped MBs forced to 16x16, then the subpel refine of each shape's
+    blocks. Returns (partition (S, mb_h, mb_w) in {0:16x16, 1:16x8,
+    2:8x16, 3:8x8}, mv8 (S, mb_h, mb_w, 2, 2, 2) per-quadrant qpel MVs)."""
+    R = me_range
+    n = 2 * R + 1
+    S = cost8.shape[0]
+    B = S * mb_h * mb_w
+    dev = cost8.device
+    ranges = make_mv_ranges(mb_w, mb_h, mv_range, dev)
+    mvmin_x, mvmax_x, mvmin_y, mvmax_y = ranges
+    offs = torch.arange(-R, R + 1, device=dev, dtype=_I32)
+    ok_x = ((offs[None, :] >= ((mvmin_x >> 2) + 6)[:, None])
+            & (offs[None, :] <= ((mvmax_x >> 2) - 6)[:, None]))  # (mb_w, n)
+    ok_y = ((offs[None, :] >= ((mvmin_y >> 2) + 6)[:, None])
+            & (offs[None, :] <= ((mvmax_y >> 2) - 6)[:, None]))  # (mb_h, n)
+    ok = ok_y[:, None, :, None] & ok_x[None, :, None, :]  # (mb_h, mb_w, dy, dx)
+
+    # search bias around the 16x16 result (the partition MEs seed from
+    # me16x16.mv, analyse.c:880): lam * (bits(dx) + bits(dy))
+    bits = device_table(_MVBITS, dev)
+
+    def axis_bits(mvp):
+        d = (offs * 4 - mvp[..., None]).abs().clamp(0, _MVBITS_RANGE - 1)
+        return bits[d.long()]                            # (S, mb_h, mb_w, n)
+    bias = lam[..., None, None] * (axis_bits(mv16_field[..., 1])[..., :, None]
+                                   + axis_bits(mv16_field[..., 0])[..., None, :])
+
+    def pick(surf):
+        cost = torch.where(ok, surf + bias, BIG).reshape(S, mb_h, mb_w, n * n)
+        k = torch.argmin(cost, dim=-1, keepdim=True)     # first minimum
+        c = torch.gather(cost, -1, k)[..., 0]
+        k = k[..., 0].to(_I32)
+        return torch.stack([(k % n - R) * 4, (k // n - R) * 4], -1), c
+
+    q = [[pick(cost8[:, :, :, qy, qx]) for qx in range(2)] for qy in range(2)]
+    top = pick(cost8[:, :, :, 0, 0] + cost8[:, :, :, 0, 1])     # 16x8
+    bot = pick(cost8[:, :, :, 1, 0] + cost8[:, :, :, 1, 1])
+    left = pick(cost8[:, :, :, 0, 0] + cost8[:, :, :, 1, 0])    # 8x16
+    right = pick(cost8[:, :, :, 0, 1] + cost8[:, :, :, 1, 1])
+    _, c16 = pick(cost8.sum(dim=(3, 4), dtype=_I32))
+
+    c8x8 = q[0][0][1] + q[0][1][1] + q[1][0][1] + q[1][1][1]
+    part = torch.zeros((S, mb_h, mb_w), dtype=_I32, device=dev)
+    best = c16
+    for cand, pid in ((c8x8, 3), (top[1] + bot[1], 1),
+                      (left[1] + right[1], 2)):
+        t = cand < best
+        best = torch.where(t, cand, best)
+        part = torch.where(t, pid, part)
+    part = torch.where(skip_mask, 0, part)
+
+    f16 = tile_mb(fenc_y.to(_I32), mb_w, mb_h, 16)
+    lamf = lam.reshape(B)
+    ranges_f = _flat_ranges(ranges, S, mb_w, mb_h)
+    partf = part.reshape(B)
+    mvpx, mvpy = mv16_field[..., 0].reshape(B), mv16_field[..., 1].reshape(B)
+
+    def refine(res, bh, bw, sy, sx, pid):
+        mv0, c0 = res
+        bmx, bmy, _ = _refine_block_batch(
+            wins4, f16[:, sy:sy + bh, sx:sx + bw], mv0[..., 0].reshape(B),
+            mv0[..., 1].reshape(B), c0.reshape(B), mvpx, mvpy, lamf,
+            ranges_f, sy, sx, partf == pid, subme)
+        return torch.stack([bmx, bmy], -1).reshape(S, mb_h, mb_w, 2)
+
+    r_tb = (refine(top, 8, 16, 0, 0, 1), refine(bot, 8, 16, 8, 0, 1))
+    r_lr = (refine(left, 16, 8, 0, 0, 2), refine(right, 16, 8, 0, 8, 2))
+    r_q = [[refine(q[qy][qx], 8, 8, qy * 8, qx * 8, 3) for qx in range(2)]
+           for qy in range(2)]
+
+    # per-quadrant MVs by the chosen shape (inter_frame.py:1297-1310)
+    def sel(pid):
+        return (part == pid)[..., None]
+    mv8 = torch.stack([torch.stack([
+        torch.where(sel(1), r_tb[qy], torch.where(
+            sel(2), r_lr[qx], torch.where(sel(3), r_q[qy][qx], mv16_field)))
+        for qx in range(2)], 3) for qy in range(2)], 3)
+    return part, mv8
 
 
 def probe_pskip(fenc_y, fenc_u, fenc_v, wins4, winsu, winsv, pskip_mv,
@@ -504,31 +751,67 @@ def compute_strengths_p(nnz_bg, cbp_luma, cbp_chroma, mv8, mb_w, mb_h):
     return bs, feo
 
 
+def fullpel_cost_surfaces_8x8(fenc_y, ref_full, mb_w: int, mb_h: int,
+                              me_range: int):
+    """Quadrant SADs of every MB at every full-pel offset in [-R, R]^2
+    (fullpel_cost_surfaces_8x8, inter_frame.py:101): ref_full (S, Hp, Wp)
+    padded full-pel planes (PAD_MC border). Kernel K4 on a CUDA tensor.
+    Returns (S, mb_h, mb_w, 2, 2, 2R+1, 2R+1) int32."""
+    strips = me_sad.make_ref_strips(ref_full, MC.PAD_MC, mb_w, mb_h,
+                                    me_range)
+    return me_sad.sad_cost_surfaces_8x8(fenc_y.to(_I32).contiguous(), strips,
+                                        mb_w, mb_h, me_range)
+
+
+def fullpel_cost_surfaces(fenc_y, ref_full, mb_w: int, mb_h: int,
+                          me_range: int):
+    """16x16 SAD surfaces, the quadrant sums (inter_frame.py:137):
+    (S, mb_h, mb_w, 2R+1, 2R+1) int32."""
+    return fullpel_cost_surfaces_8x8(fenc_y, ref_full, mb_w, mb_h,
+                                     me_range).sum(dim=(3, 4), dtype=_I32)
+
+
 def encode_p_frame(fenc_y, fenc_u, fenc_v, ref4, refu, refv, qp_mb, qpc_mb,
                    lam_mb, mb_w: int, mb_h: int, me_range: int,
                    mv_range: int, dct_decimate: bool,
-                   fast_pskip: bool = True):
+                   fast_pskip: bool = True, me_method: int = P.ME_DIA,
+                   subme: int = 1, partitions: bool = False):
     """P-frame pipeline for S streams: fenc_* (S, H, W) planes; ref4
     (S, 4, Hp, Wp), refu/refv (S, Hc+P, Wc+P) int32 reference planes
     (mc.make_ref_planes / pad_chroma); qp/qpc/lam (S, mb_h, mb_w) int32.
-    Returns the syntax + recon dict of the JAX encode_p_frame (n_ref 1,
-    no partitions, DIA, subme 1), each tensor with a leading S axis."""
+    Returns the syntax + recon dict of the JAX encode_p_frame (one
+    reference, me_method DIA or HEX, subme 1-11, partitions on or off),
+    each tensor with a leading S axis.
+
+    Without partitions the walk is the only reader of the SAD surface,
+    so kernel K1 sums the whole MB in-kernel (the surface16 path,
+    inter_frame.py:1807); with partitions kernel K4 writes the quadrant
+    surfaces and the walk reads their sum (:1823, :1873)."""
+    if me_method not in (P.ME_DIA, P.ME_HEX):
+        raise ValueError("encode_p_frame runs the DIA or HEX search")
     S = fenc_y.shape[0]
     dev = fenc_y.device
-    fy = fenc_y.to(_I32)
-    strips = me_sad.make_ref_strips(ref4[:, 0], MC.PAD_MC, mb_w, mb_h,
-                                    me_range)
-    surf = me_sad.sad_cost_surface16_lanes(fy.contiguous(), strips, mb_w,
-                                           mb_h, me_range)
+    fy = fenc_y.to(_I32).contiguous()
+    if partitions:
+        cost8 = fullpel_cost_surfaces_8x8(fy, ref4[:, 0], mb_w, mb_h,
+                                          me_range)
+        surf16 = cost8.sum(dim=(3, 4), dtype=_I32)
+    else:
+        strips = me_sad.make_ref_strips(ref4[:, 0], MC.PAD_MC, mb_w, mb_h,
+                                        me_range)
+        surf16 = me_sad.sad_cost_surface16_lanes(fy, strips, mb_w, mb_h,
+                                                 me_range)
+        del strips
     wins4 = MG.luma_windows(ref4, mb_w, mb_h).reshape(
         S * mb_h * mb_w, 4, MG.WIN_L, MG.WIN_L)
     winsu = MG.chroma_windows(refu, mb_w, mb_h).reshape(
         S * mb_h * mb_w, MG.WIN_C, MG.WIN_C)
     winsv = MG.chroma_windows(refv, mb_w, mb_h).reshape(
         S * mb_h * mb_w, MG.WIN_C, MG.WIN_C)
-    mv_field = decide_mvs_pattern(surf, fy, wins4, lam_mb, mb_w, mb_h,
-                                  me_range, mv_range)
-    del surf, strips
+    mv_field = decide_mvs_pattern(surf16, not partitions, fy, wins4, lam_mb,
+                                  mb_w, mb_h, me_range, mv_range, me_method,
+                                  subme)
+    del surf16
     skip_ok = torch.zeros((S, mb_h, mb_w), dtype=torch.bool, device=dev)
     if fast_pskip:
         psk = pskip_mv_field(mv_field)
@@ -536,13 +819,20 @@ def encode_p_frame(fenc_y, fenc_u, fenc_v, ref4, refu, refv, qp_mb, qpc_mb,
                                        winsv, psk, qp_mb, qpc_mb, mb_w,
                                        mb_h, mv_range)
         mv_field = torch.where(skip_ok[..., None], skip_mv, mv_field)
-    mv8 = mv_field[:, :, :, None, None, :].expand(S, mb_h, mb_w, 2, 2, 2) \
-        .contiguous()
+    if partitions:
+        part, mv8 = decide_partitions(cost8, mv_field, fy, wins4, lam_mb,
+                                      mb_w, mb_h, me_range, mv_range,
+                                      skip_ok, subme)
+        del cost8
+    else:
+        part = torch.zeros((S, mb_h, mb_w), dtype=_I32, device=dev)
+        mv8 = mv_field[:, :, :, None, None, :].expand(
+            S, mb_h, mb_w, 2, 2, 2).contiguous()
     out = encode_p_residual(fy, fenc_u, fenc_v, wins4, winsu, winsv, mv8,
                             qp_mb, qpc_mb, mb_w, mb_h, dct_decimate, skip_ok)
     out["mv"] = mv8[:, :, :, 0, 0].contiguous()
     out["mv8"] = mv8
-    out["partition"] = torch.zeros((S, mb_h, mb_w), dtype=_I32, device=dev)
+    out["partition"] = part
     out["ref"] = torch.zeros((S, mb_h, mb_w), dtype=_I32, device=dev)
     out["bs"], out["feo"] = compute_strengths_p(
         out.pop("luma_nnz_bg"), out["cbp_luma"], out["cbp_chroma"], mv8,

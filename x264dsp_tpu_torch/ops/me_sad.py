@@ -1,14 +1,18 @@
-"""Full-pel 16x16 SAD cost surface — port of
-x264dsp_tpu/ops/pallas/me_sad.py (``make_ref_strips`` and
-``sad_cost_surface16_lanes``).
+"""Full-pel SAD cost surfaces — port of x264dsp_tpu/ops/pallas/me_sad.py
+(``make_ref_strips``, ``sad_cost_surface16_lanes`` and
+``sad_cost_surfaces_8x8``).
 
-``sad_cost_surface16_lanes`` launches kernel K1 (``csrc/me_sad.cu``) on a
-CUDA tensor and runs ``sad_cost_surface16_lanes_plain`` on a CPU tensor.
-Both return the lane layout [row, dy, dx, mbx] that the DIA walk reads,
-with a leading stream axis. K1 replaces the Pallas kernel ``_kernel16``;
-on the H100 it is bound by load issue (2 x 256 int32 reads per output,
-cached in L1/L2), and the TPU's hi/lo-byte bf16 dot becomes plain int32
-sums (see the source note in the .cu).
+``sad_cost_surface16_lanes`` launches kernel K1 and
+``sad_cost_surfaces_8x8`` kernel K4 (both in ``csrc/me_sad.cu``) on a
+CUDA tensor and runs its ``*_plain`` version on a CPU tensor. K1 returns
+the lane layout [row, dy, dx, mbx] that the no-partitions walk reads;
+K4 returns the four 8x8-quadrant surfaces in the JAX layout [row, mbx,
+qy, qx, dy, dx] that partition analysis reads; both with a leading
+stream axis. K1 replaces the Pallas kernel ``_kernel16`` and K4
+``_kernel``; on the H100 both are bound by integer issue (a subtract,
+an absolute value and an add per pixel and offset), and the TPU's
+hi/lo-byte bf16 dot becomes plain int32 sums (see the source notes in
+the .cu).
 """
 
 from __future__ import annotations
@@ -17,7 +21,8 @@ import torch
 
 from .. import _build
 
-launches = 0            # K1 launches (chip_smoke.py checks the main path)
+# CUDA launches of K1 / K4 (chip_smoke.py checks the main paths)
+launches = {"sad_surface16": 0, "sad_surfaces_8x8": 0}
 
 
 def make_ref_strips(ref_full_pad, pad: int, mb_w: int, mb_h: int, R: int):
@@ -28,6 +33,14 @@ def make_ref_strips(ref_full_pad, pad: int, mb_w: int, mb_h: int, R: int):
             + torch.arange(16 + 2 * R, device=dev)[None, :])
     cols = pad - R + torch.arange(16 * mb_w + 2 * R, device=dev)
     return ref_full_pad[:, rows[:, :, None], cols[None, None, :]].contiguous()
+
+
+def _check_args(fenc_y, strips, mb_w: int, mb_h: int, R: int):
+    S = fenc_y.shape[0]
+    _build.require_cuda(fenc_y, torch.int32, (S, 16 * mb_h, 16 * mb_w),
+                        "fenc_y")
+    _build.require_cuda(strips, torch.int32,
+                        (S, mb_h, 16 + 2 * R, 16 * mb_w + 2 * R), "strips")
 
 
 def sad_cost_surface16_lanes_plain(fenc_y, strips, mb_w: int, mb_h: int,
@@ -52,24 +65,64 @@ def sad_cost_surface16_lanes_plain(fenc_y, strips, mb_w: int, mb_h: int,
 def sad_cost_surface16_lanes_cuda(fenc_y, strips, mb_w: int, mb_h: int,
                                   R: int):
     """Kernel K1 (arguments as the plain version, int32 CUDA tensors)."""
-    global launches
     S = fenc_y.shape[0]
     n = 2 * R + 1
-    _build.require_cuda(fenc_y, torch.int32, (S, 16 * mb_h, 16 * mb_w),
-                        "fenc_y")
-    _build.require_cuda(strips, torch.int32,
-                        (S, mb_h, 16 + 2 * R, 16 * mb_w + 2 * R), "strips")
+    _check_args(fenc_y, strips, mb_w, mb_h, R)
     out = torch.empty((S, mb_h, n, n, mb_w), dtype=torch.int32,
                       device=fenc_y.device)
     code = _build.lib().x264t_sad_surface16(
         fenc_y.data_ptr(), strips.data_ptr(), out.data_ptr(), S, mb_h, mb_w,
         R, _build.stream_ptr(fenc_y.device))
     _build.check(code, "x264t_sad_surface16")
-    launches += 1
+    launches["sad_surface16"] += 1
     return out
 
 
 def sad_cost_surface16_lanes(fenc_y, strips, mb_w: int, mb_h: int, R: int):
     fn = (sad_cost_surface16_lanes_cuda if fenc_y.is_cuda
           else sad_cost_surface16_lanes_plain)
+    return fn(fenc_y, strips, mb_w, mb_h, R)
+
+
+def sad_cost_surfaces_8x8_plain(fenc_y, strips, mb_w: int, mb_h: int,
+                                R: int):
+    """fenc_y (S, 16mb_h, 16mb_w) int32, strips from make_ref_strips ->
+    (S, mb_h, mb_w, 2, 2, 2R+1, 2R+1) int32 quadrant SADs [qy][qx] at
+    every full-pel offset (the per-offset loop of
+    x264dsp_tpu/encoder/inter_frame.py:118-134)."""
+    S = fenc_y.shape[0]
+    W = 16 * mb_w
+    n = 2 * R + 1
+    f = fenc_y.to(torch.int32).reshape(S, mb_h, 16, W)
+    out = torch.empty((S, mb_h, mb_w, 2, 2, n, n), dtype=torch.int32,
+                      device=fenc_y.device)
+    for dy in range(n):
+        rows = strips[:, :, dy:dy + 16, :]
+        for dx in range(n):
+            ad = (f - rows[..., dx:dx + W]).abs()
+            tile = ad.reshape(S, mb_h, 2, 8, mb_w, 2, 8).sum(
+                dim=(3, 6), dtype=torch.int32)      # (S, mb_h, qy, mb_w, qx)
+            out[..., dy, dx] = tile.permute(0, 1, 3, 2, 4)
+    return out
+
+
+def sad_cost_surfaces_8x8_cuda(fenc_y, strips, mb_w: int, mb_h: int,
+                               R: int):
+    """Kernel K4 (arguments as the plain version, int32 CUDA tensors)."""
+    S = fenc_y.shape[0]
+    n = 2 * R + 1
+    _check_args(fenc_y, strips, mb_w, mb_h, R)
+    out = torch.empty((S, mb_h, mb_w, 2, 2, n, n), dtype=torch.int32,
+                      device=fenc_y.device)
+    code = _build.lib().x264t_sad_surfaces_8x8(
+        fenc_y.data_ptr(), strips.data_ptr(), out.data_ptr(), S, mb_h, mb_w,
+        R, _build.stream_ptr(fenc_y.device))
+    _build.check(code, "x264t_sad_surfaces_8x8")
+    launches["sad_surfaces_8x8"] += 1
+    return out
+
+
+def sad_cost_surfaces_8x8(fenc_y, strips, mb_w: int, mb_h: int, R: int):
+    fn = (sad_cost_surfaces_8x8_cuda if fenc_y.is_cuda
+          else sad_cost_surfaces_8x8_plain)
     return fn(fenc_y, strips, mb_w, mb_h, R)

@@ -12,10 +12,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from x264dsp_tpu.ops.tables import (DEQUANT4_MF, QUANT4_BIAS_INTER,
-                                    QUANT4_BIAS_INTRA, QUANT4_MF, ZIGZAG_4x4)
-
 from .devtab import device_table
+from .tables import (DEQUANT4_MF, QUANT4_BIAS_INTER, QUANT4_BIAS_INTRA,
+                     QUANT4_MF, ZIGZAG_4x4)
 
 # coding-order 4x4 block idx -> (x, y) block position in the MB (scan8
 # order); copied from x264dsp_tpu/ops/golden.py (which imports JAX)

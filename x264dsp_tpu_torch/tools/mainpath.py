@@ -1,7 +1,19 @@
-"""The main path's settings and clip: bench.py:429-454's BatchEncoder
-parameters and a torch twin of its synthetic clip (bench.py:91-135
-make_synth_device: a smooth gradient, two moving sinusoid textures and
-light noise, made on the device)."""
+"""The measured configurations' settings and clips.
+
+- main path: bench.py:429-454's BatchEncoder parameters and a torch twin
+  of its synthetic clip (bench.py:91-135 make_synth_device: a smooth
+  gradient, two moving sinusoid textures and light noise, made on the
+  device);
+- faster-1ref: x264's ``--preset faster`` analysis (HEX search, subme 4,
+  the p8x8 partitions) cut to what the baseline BatchEncoder codes (no
+  i8x8, one reference, no B-frames), on a device twin of the
+  split-motion clip of tests/test_partitions.py:21 (two halves moving
+  in different directions, so partitions win on some MBs).
+
+The parameter helpers set their fields on ``p`` when given (any Param
+with the package's fields: the tests pass the JAX package's so that both
+encoders get the same settings), else on the port's ``param_default()``.
+"""
 
 from __future__ import annotations
 
@@ -9,17 +21,35 @@ import numpy as np
 import torch
 
 
-def main_path_param(w: int, h: int, qp: int = 26, keyint: int = 50):
+def main_path_param(w: int, h: int, qp: int = 26, keyint: int = 50, p=None):
     """param_default() analysis with CQP at `qp`, CAVLC, IPPP `keyint`."""
-    import x264dsp_tpu_torch as xtt
-    p = xtt.param_default()
+    from .. import params as P
+    p = P.param_default() if p is None else p
     p.i_width, p.i_height = w, h
     p.b_cabac = 0
-    p.rc.i_rc_method = xtt.RC_CQP
+    p.rc.i_rc_method = P.RC_CQP
     p.rc.i_qp_constant = qp
     p.i_keyint_max = keyint
     p.i_scenecut_threshold = 0
     p.rc.i_lookahead = 0
+    return p
+
+
+def faster_1ref_param(w: int, h: int, qp: int = 26, keyint: int = 50,
+                      p=None):
+    """The main path's settings with x264 --preset faster's P analysis:
+    HEX over +-16, subme 4, 16x8/8x16/8x8 partitions, fast P-skip and DCT
+    decimation on, one reference."""
+    from .. import params as P
+    p = main_path_param(w, h, qp, keyint, p)
+    a = p.analyse
+    a.inter = P.ANALYSE_PSUB16x16
+    a.i_me_method = P.ME_HEX
+    a.i_subpel_refine = 4
+    a.i_me_range = 16
+    a.b_fast_pskip = 1
+    a.b_dct_decimate = 1
+    p.i_frame_reference = 1
     return p
 
 
@@ -46,6 +76,32 @@ def synth_clip(w: int, h: int, device):
         v = (128 + 40 * torch.cos((yc + dy) / 47.0)).clamp(0, 255) \
             .to(torch.uint8)
         return y, u, v
+    return frame
+
+
+def split_motion_clip(w: int, h: int, device, seed: int = 11):
+    """Device twin of tests/test_partitions.py:21 _split_motion_clip:
+    frame(t) -> (y, u, v) uint8 planes on `device`, equal to that clip's
+    frame t (integer t). The top half moves down and the bottom half
+    right, 3 px per frame, over a textured base made once with numpy
+    (the same seed and draws) and kept on the device."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h * 2, 0:w * 2]
+    base = (110 + 70 * np.sin(xx / 7.3) * np.cos(yy / 5.1)
+            + rng.normal(0, 4, (h * 2, w * 2))).clip(0, 255)
+    base = torch.as_tensor(base.astype(np.uint8), device=device)
+    xc, yc = xx[:h:2, :w:2], yy[:h:2, :w:2]
+
+    def frame(t: float):
+        d = 3 * int(t)
+        if 8 + d + h // 2 > 2 * h:
+            raise ValueError(f"frame {t} lies beyond the base texture")
+        y = torch.cat([base[8 + d:8 + d + h // 2, 8:8 + w],
+                       base[8:8 + h - h // 2, 8 + d:8 + d + w]])
+        u = (120 + 30 * np.sin((xc + d) / 9.0)).clip(0, 255)
+        v = (128 + 30 * np.cos((yc + d) / 11.0)).clip(0, 255)
+        return (y, torch.as_tensor(u.astype(np.uint8), device=device),
+                torch.as_tensor(v.astype(np.uint8), device=device))
     return frame
 
 

@@ -3,8 +3,8 @@
     python -m x264dsp_tpu_torch.tools.profile_slot [--streams 8]
                                                   [--corner 128x64]
 
-Two measurements on the main path's synthetic clip and settings
-(tools/mainpath.py), each printed on a labelled line:
+Three measurements, each printed on labelled lines; the first two on
+the main path's synthetic clip and settings (tools/mainpath.py):
 
   I corner   encode_i_frame, the I slot's encode stage, on the top-left
              corner of S streams (128x64: 14 wavefront diagonals; a
@@ -17,6 +17,16 @@ Two measurements on the main path's synthetic clip and settings
              planes made from the clip's previous frame: the unprofiled
              wall, then one profiled run as above, and each hand-written
              kernel's device time in that run.
+  P step faster-1ref
+             the same for faster-1ref (HEX, subme 4, 16x8/8x16/8x8
+             partitions; kernel K4 in place of K1) on the split-motion
+             clip.
+
+Each P step also prints its stage split ("P step ... stages"): one more
+run with a device sync around each stage of encode_p_frame (the full-pel
+surfaces, the windows, the MV decision, the P-skip probe, the partition
+analysis, the residual, the strengths) and of frame_step (deblock,
+reference planes).
 
 Device time is the sum of the CUDA activity the profiler records
 (kernels, copies, memsets); the step runs on one stream, so that
@@ -38,6 +48,7 @@ import torch
 W, H = 1920, 1088
 # device-side names of the csrc/ kernels, as the profiler reports them
 KERNELS = {"K1 sad_surface16": "sad_surface16_kernel",
+           "K4 sad_surfaces_8x8": "sad_surfaces_8x8_kernel",
            "K2a luma_windows": "luma_windows_kernel",
            "K2b chroma_windows": "chroma_windows_kernel",
            "K3 deblock": "deblock_kernel"}
@@ -70,6 +81,85 @@ def device_profile(fn):
     return t, len(ev), busy, per
 
 
+def stage_split(fn) -> dict:
+    """One call of fn with a device sync around each stage of the P step:
+    {stage: ms}. The stages are the module functions that encode_p_frame
+    and frame_step call, wrapped for the call and restored after it."""
+    from x264dsp_tpu_torch.encoder import core, inter_frame
+    from x264dsp_tpu_torch.ops import mc, mcgather, me_sad
+    stages = {"surfaces": [(me_sad, "sad_cost_surface16_lanes"),
+                           (inter_frame, "fullpel_cost_surfaces_8x8")],
+              "windows": [(mcgather, "luma_windows"),
+                          (mcgather, "chroma_windows")],
+              "mv decision": [(inter_frame, "decide_mvs_pattern")],
+              "pskip probe": [(inter_frame, "probe_pskip")],
+              "partitions": [(inter_frame, "decide_partitions")],
+              "residual": [(inter_frame, "encode_p_residual")],
+              "strengths": [(inter_frame, "compute_strengths_p")],
+              "deblock": [(core.DB, "deblock_frame")],
+              "ref planes": [(mc, "make_ref_planes"), (mc, "pad_chroma")]}
+    ms = dict.fromkeys(stages, 0.0)
+    saved = []
+
+    def timed(stage, f):
+        def g(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = f(*a, **k)
+            torch.cuda.synchronize()
+            ms[stage] += (time.perf_counter() - t0) * 1e3
+            return r
+        return g
+    for stage, where in stages.items():
+        for mod, name in where:
+            saved.append((mod, name, getattr(mod, name)))
+            setattr(mod, name, timed(stage, getattr(mod, name)))
+    try:
+        total = wall(fn) * 1e3
+    finally:
+        for mod, name, f in saved:
+            setattr(mod, name, f)
+    ms["other"] = total - sum(ms.values())
+    return ms
+
+
+def p_step(label, be, frame, S, dev, grid):
+    """Measure one P frame_step of `be`'s settings on slots 0 -> 1 of
+    `frame` (the P step lines of the module docstring)."""
+    from x264dsp_tpu_torch.encoder import core as C
+    from x264dsp_tpu_torch.ops import mc as MC
+    from .mainpath import stacked_slot
+    import x264dsp_tpu_torch as xtt
+    qp = be.slot_qp(xtt.SLICE_TYPE_P)
+    cfg = be.frame_cfg(qp)
+    mb_w, mb_h = W // 16, H // 16
+    py, pu, pv = stacked_slot(frame, 0, S)
+    refs = (MC.make_ref_planes(py).contiguous(),
+            MC.pad_chroma(pu).contiguous(), MC.pad_chroma(pv).contiguous())
+    cur = stacked_slot(frame, 1, S)
+    qp_mb = grid(qp, mb_w, mb_h)
+    lam = grid(C.LAMBDA_TAB[qp], mb_w, mb_h)
+    clock = C.StageClock(dev, False)
+
+    def run_p():
+        C.frame_step(cfg, True, *cur, refs, qp_mb, lam, qp, clock)
+    run_p()                                        # warm-up
+    t = wall(run_p)
+    print(f"{label} {W}x{H} S={S} QP {qp}: unprofiled {t * 1e3:.2f} ms")
+    tp, n_ops, busy, per = device_profile(run_p)
+    print(f"{label} profiled: wall {tp * 1e3:.2f} ms, device {busy:.2f} ms"
+          f" = {100 * busy / (tp * 1e3):.1f}% of the profiled wall, "
+          f"{100 * busy / (t * 1e3):.1f}% of the unprofiled wall; "
+          f"{n_ops} device ops")
+    print(f"{label} kernels, device ms: "
+          + ", ".join(f"{k} {ms:.3f}" for k, ms in per.items())
+          + f" (sum {sum(per.values()):.3f})")
+    split = stage_split(run_p)
+    print(f"{label} stages, synchronized ms: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in split.items())
+          + f" (sum {sum(split.values()):.2f})")
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--streams", type=int, default=8)
@@ -79,11 +169,11 @@ def main(argv=None) -> None:
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA device")
     import x264dsp_tpu_torch as xtt
-    from x264dsp_tpu.ops.tables import CHROMA_QP_TABLE
+    from x264dsp_tpu_torch.ops.tables import CHROMA_QP_TABLE
     from x264dsp_tpu_torch.encoder import core as C
     from x264dsp_tpu_torch.encoder import intra_frame
-    from x264dsp_tpu_torch.ops import mc as MC
-    from .mainpath import main_path_param, stacked_slot, synth_clip
+    from .mainpath import (faster_1ref_param, main_path_param,
+                           split_motion_clip, stacked_slot, synth_clip)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -126,31 +216,12 @@ def main(argv=None) -> None:
           f"{100 * busy / (t * 1e3):.1f}% of the unprofiled wall; "
           f"{n_ops} device ops = {n_ops / n_diag:.0f} per diagonal")
 
-    # ---- P step
-    qp = be.slot_qp(xtt.SLICE_TYPE_P)
-    cfg = be.frame_cfg(qp)
-    mb_w, mb_h = W // 16, H // 16
-    py, pu, pv = stacked_slot(frame, 0, S)
-    refs = (MC.make_ref_planes(py).contiguous(),
-            MC.pad_chroma(pu).contiguous(), MC.pad_chroma(pv).contiguous())
-    cur = stacked_slot(frame, 1, S)
-    qp_mb = grid(qp, mb_w, mb_h)
-    lam = grid(C.LAMBDA_TAB[qp], mb_w, mb_h)
-    clock = C.StageClock(dev, False)
-
-    def run_p():
-        C.frame_step(cfg, True, *cur, refs, qp_mb, lam, qp, clock)
-    run_p()                                        # warm-up
-    t = wall(run_p)
-    print(f"P step {W}x{H} S={S} QP {qp}: unprofiled {t * 1e3:.2f} ms")
-    tp, n_ops, busy, per = device_profile(run_p)
-    print(f"P step profiled: wall {tp * 1e3:.2f} ms, device {busy:.2f} ms"
-          f" = {100 * busy / (tp * 1e3):.1f}% of the profiled wall, "
-          f"{100 * busy / (t * 1e3):.1f}% of the unprofiled wall; "
-          f"{n_ops} device ops")
-    print("P step kernels, device ms: "
-          + ", ".join(f"{k} {ms:.3f}" for k, ms in per.items())
-          + f" (sum {sum(per.values()):.3f})")
+    # ---- P steps: the main path, then faster-1ref
+    p_step("P step", be, frame, S, dev, grid)
+    be.close()
+    be = xtt.BatchEncoder(faster_1ref_param(W, H), S, device="cuda")
+    p_step("P step faster-1ref", be, split_motion_clip(W, H, dev), S, dev,
+           grid)
     be.close()
 
 
