@@ -4,22 +4,32 @@ Phases (any failure exits non-zero):
   1. setup: the card's name and power limit, the CUDA kernel build (one
      nvcc per source, all started together);
   2. each hand-written kernel (K1 SAD surface, K2a/K2b MC windows, K3
-     deblock, K4 quadrant SAD surfaces) against its plain PyTorch version
-     at the 1920x1088 shapes (R = 16, S = 8), exact equality, with
-     CUDA-event times, the least time the card could take for the same
-     work (bound_ms) and, where one PyTorch call computes the same
-     function, that call's time (library_ms);
-  3. the BatchEncoder on the GPU against the same on the CPU: the main
-     path on a 64x48 clip and faster-1ref (HEX, subme 4, partitions) on a
-     64x64 split-motion clip (S = 2, keyint 4, 6 frames each): identical
-     Annex-B bytes;
+     deblock, K4 quadrant SAD surfaces, K5a/K5b wave deblock, K6 region
+     filter) against its plain PyTorch version at the 1920x1088 shapes
+     (R = 16, S = 8; K6 at one full diagonal of all streams, 480
+     regions), exact equality, with CUDA-event times, the least time the
+     card could take for the same work (bound_ms) and, where one PyTorch
+     call computes the same function, that call's time (library_ms); the
+     wave and region deblock routes against K3 on the same frame;
+  3. the BatchEncoder on the GPU against the same on the CPU (both pack
+     CAVLC with the device packer): the main path on a 64x48 clip and
+     faster-1ref (HEX, subme 4, partitions) on a 64x64 split-motion clip
+     (S = 2, keyint 4, 6 frames each): identical Annex-B bytes, also with
+     the slots on the wave and on the region deblock route;
   4. the main path: BatchEncoder at 1920x1088, S = 8, QP 26, keyint 50,
      CAVLC, DIA, subme 1, one I slot and four P slots of a synthetic clip;
-     prints fps and the per-stage split;
+     prints fps and the per-stage split, and holds the device payload of
+     the I slot and the first P slot, every stream, to the host C++
+     writers on the pulled syntax;
   5. faster-1ref: the same BatchEncoder with HEX, subme 4 and the
-     16x8/8x16/8x8 partitions, one I slot and three P slots of a
-     split-motion clip, unprofiled; prints fps and the partition counts.
-Phases 4 and 5 each set the launch counters to 0 just before they drive
+     16x8/8x16/8x8 partitions, one I slot and two P slots of a
+     split-motion clip, unprofiled; prints fps and the partition counts;
+  6. the deblock routes at full width: the main-path clip again, one I
+     and three P slots, the I slot and the first P slot on the wave route,
+     the second P slot on the region route, the third on the default:
+     the bytes of phase 4's first four slots, K5a and K5b launched twice
+     and K6 once per diagonal.
+Phases 4 to 6 each set the launch counters to 0 just before they drive
 the encoder and read them just after; a kernel of the path that was
 never launched fails the run. The line before the last is the kernels'
 JSON record; the last line is {"ok": true, "device": {...}}. Imports
@@ -202,26 +212,73 @@ def kernel_checks():
     for tag, args in (("P", p_args), ("I", i_args)):
         # bytes only: the planes read and written once, the grids read
         # once; the filter arithmetic is a few operations per edge sample
+        dsrc = "x264dsp_tpu_torch/csrc/deblock.cu"
         moved = nbytes(*args[:8]) + nbytes(y, u, v)
-        cases.append((f"deblock[{tag}]", "x264dsp_tpu_torch/csrc/deblock.cu",
+        # the plain wavefronts are eager loops over the 254 diagonals
+        # (seconds): plain reps 0 = timed once, on the call that is compared
+        cases.append((f"deblock[{tag}]", dsrc,
                       "x264dsp_tpu/ops/pallas/deblock_skew.py:258",
                       lambda a=args: DB.deblock_frame_cuda(*a),
-                      lambda a=args: DB.deblock_frame_plain(*a), None, 10, 1,
+                      lambda a=args: DB.deblock_frame_plain(*a), None, 10, 0,
                       (moved, 0)))
+        # K5a / K5b: the same frames from the precomputed lanes (planes
+        # read and written once, lanes read once)
+        luma_l, chroma_l = DB.wave_lanes(*args[3:])
+        cases.append((f"deblock_wave_luma[{tag}]", dsrc,
+                      "x264dsp_tpu/ops/pallas/deblock_wave.py:270",
+                      lambda l=luma_l: DB.deblock_wave_luma_cuda(
+                          y, *l, mb_w, mb_h),
+                      lambda l=luma_l: DB.deblock_wave_luma_plain(
+                          y, *l, mb_w, mb_h), None, 10, 0,
+                      (2 * nbytes(y) + nbytes(*luma_l), 0)))
+        cases.append((f"deblock_wave_chroma[{tag}]", dsrc,
+                      "x264dsp_tpu/ops/pallas/deblock_wave.py:313",
+                      lambda l=chroma_l: DB.deblock_wave_chroma_cuda(
+                          u, v, *l, mb_w, mb_h),
+                      lambda l=chroma_l: DB.deblock_wave_chroma_plain(
+                          u, v, *l, mb_w, mb_h), None, 10, 0,
+                      (2 * nbytes(u, v) + nbytes(*chroma_l), 0)))
+        # K6: the longest diagonal of all streams, S x 60 = 480 regions
+        ys, xs = (torch.as_tensor(a, device=dev)
+                  for a in DB.diag_slots(mb_w, mb_h))
+        d = int((ys >= 0).sum(1).argmax())
+        k = int((ys[d] >= 0).sum())
+        if S * k % DB.KB:
+            fail(f"K6's diagonal has {S * k} regions, no multiple of "
+                 f"{DB.KB}")
+        F = torch.nn.functional
+        ry, rx = DB.region_index(ys[d, :k], xs[d, :k], 16, 20, dev)
+        cy, cx = DB.region_index(ys[d, :k], xs[d, :k], 8, 12, dev)
+        regy = F.pad(y, (4, 4, 4, 4))[:, ry, rx].reshape(S * k, 20, 20)
+        regc = F.pad(torch.stack([u, v], 1), (4, 4, 4, 4))[:, :, cy, cx] \
+            .transpose(1, 2).reshape(2 * S * k, 12, 12).contiguous()
+        ly = [t[:, d, :k].reshape(S * k, -1).contiguous() for t in luma_l]
+        lc = [t[:, d, :2 * k].reshape(2 * S * k, -1).contiguous()
+              for t in chroma_l]
+        regs = (regy, regc, ly[0], lc[0], ly[1], ly[2], lc[1], lc[2], ly[3],
+                ly[4], lc[3], lc[4])
+        cases.append((f"filter_regions[{tag}]", dsrc,
+                      "x264dsp_tpu/ops/pallas/deblock_filter.py:117",
+                      lambda r=regs: DB.filter_regions_cuda(*r),
+                      lambda r=regs: DB.filter_regions_plain(*r), None, 10, 3,
+                      (nbytes(*regs) + nbytes(regy, regc), 0)))
 
     for name, src, replaces, kern, plain, lib, reps, preps, work in cases:
         got = kern()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         want = plain()
         torch.cuda.synchronize()
+        once_ms = (time.perf_counter() - t0) * 1e3
         err = max_err(got, want)
         if lib is not None and max_err(lib(), want) != 0:
             fail(f"the library call for {name} computes another function")
         del got, want
         ms = time_cuda(kern, reps)
-        plain_ms = time_cuda(plain, preps)
+        plain_ms = time_cuda(plain, preps) if preps else once_ms
         library_ms = time_cuda(lib, reps) if lib is not None else None
         bound_ms, bound_by = bound(*work)
-        print(f"kernel {name:16s} max_abs_err {err}  {ms:9.3f} ms  "
+        print(f"kernel {name:22s} max_abs_err {err}  {ms:9.3f} ms  "
               f"plain {plain_ms:10.3f} ms  library "
               + (f"{library_ms:.3f} ms" if lib is not None else "none")
               + f"  bound {bound_ms:.3f} ms ({bound_by})")
@@ -231,6 +288,24 @@ def kernel_checks():
                         replaces=replaces, max_abs_err=err, ms=ms,
                         plain_ms=plain_ms, bound_ms=bound_ms,
                         bound_by=bound_by, library_ms=library_ms))
+
+    # the three routes of deblock_frame on the same planes and grids:
+    # lanes + K5a + K5b, and one gather + K6 + scatter per diagonal,
+    # against K3
+    for tag, args in (("P", p_args), ("I", i_args)):
+        want = DB.deblock_frame(*args)
+        ms = {None: time_cuda(lambda: DB.deblock_frame(*args), 5)}
+        for route in ("wave", "region"):
+            err = max_err(DB.deblock_frame(*args, route=route), want)
+            if err != 0:
+                fail(f"deblock route {route} [{tag}] disagrees with K3")
+            ms[route] = time_cuda(
+                lambda: DB.deblock_frame(*args, route=route), 2)
+        print(f"deblock routes [{tag}], whole frame S={S}: default (K3) "
+              f"{ms[None]:.3f} ms, wave (lanes + K5a + K5b) "
+              f"{ms['wave']:.3f} ms, region ({mb_w + 2 * mb_h - 2} x gather "
+              f"+ K6 + scatter) "
+              f"{ms['region']:.3f} ms, max_abs_err 0")
     return rec
 
 
@@ -249,25 +324,34 @@ def small_clip(w, h, n, seed):
     return frames
 
 
-def encode(be, batches):
-    """Run stacked (y, u, v) batches through a BatchEncoder; returns the
-    per-stream byte streams, the per-slot deblocked recon planes, as the
-    encoder's own device tensors (kept, not copied: no host transfer or
-    sync inside a timed run), and the encoder's summary."""
+def encode(be, batches, routes=None, after_slot=None):
+    """Run stacked (y, u, v) batches through a BatchEncoder; `routes`
+    gives each slot's deblock route, `after_slot(t)` runs after slot t's
+    step. Returns the per-slot per-stream Annex-B bytes, the per-slot
+    deblocked recon planes, as the encoder's own device tensors (kept,
+    not copied: no host transfer or sync inside a timed run), and the
+    encoder's summary."""
     import torch
-    streams = [b""] * be.S
-    recons = []
-    for item in list(batches) + [None]:
+    slots, recons = [], []
+    for t, item in enumerate(list(batches) + [None]):
+        if item is not None and routes is not None:
+            be.deblock_route = routes[t]
         out = be.encode_batch(item)
         if item is not None:
             recons.append(be.last_recon)
+            if after_slot is not None:
+                after_slot(t)
         if out is not None:
-            for s, nl in enumerate(out):
-                streams[s] += b"".join(n.payload for n in nl)
+            slots.append([b"".join(n.payload for n in nl) for nl in out])
     summary = be.close()
     if be.device.type == "cuda":
         torch.cuda.synchronize()
-    return streams, recons, summary
+    return slots, recons, summary
+
+
+def joined(slots):
+    """Per-slot per-stream bytes -> one byte stream per stream."""
+    return [b"".join(sl[s] for sl in slots) for s in range(len(slots[0]))]
 
 
 def n_partitioned(summary) -> int:
@@ -299,16 +383,23 @@ def card_vs_cpu():
                   for f in split])))
     for label, w, h, make, batches in configs:
         out = {}
-        for dev in ("cuda", "cpu"):
+        for dev, route in (("cuda", None), ("cpu", None), ("cuda", "wave"),
+                           ("cuda", "region")):
             be = xtt.BatchEncoder(make(w, h, 26, 4), S, device=dev)
-            streams, _, summary = encode(be, batches)
-            out[dev] = streams
-        same = out["cuda"] == out["cpu"]
+            slots, _, summary = encode(be, batches, routes=[route] * n)
+            out[dev, route] = joined(slots)
+        same = out["cuda", None] == out["cpu", None]
+        routes_same = (out["cuda", "wave"] == out["cuda", None]
+                       and out["cuda", "region"] == out["cuda", None])
         print(f"card vs CPU, {label} {w}x{h} S={S} keyint 4, {n} frames: "
-              f"bytes {[len(b) for b in out['cuda']]} identical={same}, "
-              f"partitioned MBs {n_partitioned(summary)}")
-        if not same or not all(out["cpu"]):
+              f"bytes {[len(b) for b in out['cuda', None]]} "
+              f"identical={same}, wave and region routes "
+              f"identical={routes_same}, partitioned MBs "
+              f"{n_partitioned(summary)}")
+        if not same or not all(out["cpu", None]):
             fail(f"the card's Annex-B bytes differ from the CPU's ({label})")
+        if not routes_same:
+            fail(f"a deblock route changes the card's bytes ({label})")
 
 
 def psnr(a, b) -> float:
@@ -316,12 +407,12 @@ def psnr(a, b) -> float:
     return 99.0 if mse == 0 else 10 * np.log10(255.0 ** 2 / mse)
 
 
-def drive(label, param, batches, path_kernels):
+def drive(label, param, batches, path_kernels, routes=None):
     """Drive one path through the BatchEncoder on the card, unprofiled:
     the launch counters are set to 0 just before and read just after.
     Fails unless every kernel of the path launched, every stream is
     non-empty and the worst luma PSNR is at least 30 dB. Returns the
-    launches and the encoder's summary."""
+    launches, the encoder's summary and the per-slot bytes."""
     import torch
     import x264dsp_tpu_torch as xtt
     S = batches[0][0].shape[0]
@@ -329,9 +420,10 @@ def drive(label, param, batches, path_kernels):
     xtt.reset_kernel_launches()
     be = xtt.BatchEncoder(param, S)
     t0 = time.perf_counter()
-    streams, recons, summary = encode(be, batches)
+    slots, recons, summary = encode(be, batches, routes=routes)
     wall = time.perf_counter() - t0
     launches = xtt.kernel_launches()
+    streams = joined(slots)
     print(f"{label} {W}x{H} S={S} QP {QP}: 1 I + {len(batches) - 1} P slots "
           f"in {wall:.3f} s = {S * len(batches) / wall:.3f} fps "
           f"(bytes/stream {[len(b) for b in streams]})")
@@ -350,7 +442,7 @@ def drive(label, param, batches, path_kernels):
           f"{len(recons)} slots x {S} streams")
     if worst < 30.0 or min(len(b) for b in streams) == 0:
         fail(f"{label} output is wrong (empty stream or PSNR < 30 dB)")
-    return launches, summary
+    return launches, summary, slots
 
 
 def main_path(n_p: int = 4):
@@ -362,28 +454,42 @@ def main_path(n_p: int = 4):
     frame = synth_clip(W, H, torch.device("cuda"))
     batches = [stacked_slot(frame, t, S_MAIN) for t in range(1 + n_p)]
     param = main_path_param(W, H, QP, KEYINT)
-    launches, _ = drive("main path", param, batches,
-                        ("sad_surface16", "luma_windows", "chroma_windows",
-                         "deblock"))
+    launches, _, slots = drive("main path", param, batches,
+                               ("sad_surface16", "luma_windows",
+                                "chroma_windows", "deblock"))
 
     # the same slots once more with stage timing (synchronizes the device
-    # at each stage and serializes the entropy pipeline)
+    # at each stage); between the steps, outside the timed stages, the I
+    # slot's and the first P slot's syntax is pulled once and every
+    # stream's device payload is held to the host C++ writers
+    from x264dsp_tpu_torch.tools.mainpath import payload_vs_writers
     be = xtt.BatchEncoder(param, S_MAIN, profile=True)
-    encode(be, batches)
+    be.keep_syntax = True
+
+    def check(t):
+        if t < 2:
+            bits = payload_vs_writers(be)
+            print(f"device payload == host C++ writers, {'IP'[t]} slot, "
+                  f"{S_MAIN} streams: bits {bits}")
+        else:
+            be.keep_syntax, be.last_slot = False, None
+    profiled, _, _ = encode(be, batches, after_slot=check)
+    if profiled != slots:
+        fail("the profiled main-path run wrote other bytes")
     for kind, name in ((2, "I"), (0, "P")):
         rows = [tm for st, tm in be.slot_times if st == kind]
         if not rows:
             continue
         avg = {k: 1000 * sum(r.get(k, 0.0) for r in rows) / len(rows)
-               for k in ("encode", "deblock", "ref_planes", "pull", "cavlc")}
+               for k in ("encode", "cavlc", "deblock", "ref_planes", "pull")}
         total = sum(avg.values())
         print(f"{name} slot ms (mean of {len(rows)}): "
               + " ".join(f"{k} {v:.2f}" for k, v in avg.items())
               + f" | total {total:.2f}")
-    return launches
+    return launches, slots
 
 
-def faster_path(n_p: int = 3):
+def faster_path(n_p: int = 2):
     """Phase 5: faster-1ref (HEX, subme 4, partitions) at 1080p, 8
     streams, on the split-motion clip, unprofiled (its stage split comes
     from tools/profile_slot.py)."""
@@ -393,11 +499,39 @@ def faster_path(n_p: int = 3):
                                                   stacked_slot)
     frame = split_motion_clip(W, H, torch.device("cuda"))
     batches = [stacked_slot(frame, t, S_MAIN) for t in range(1 + n_p)]
-    launches, summary = drive(
+    launches, summary, _ = drive(
         "faster-1ref", faster_1ref_param(W, H, QP, KEYINT), batches,
         ("sad_surfaces_8x8", "luma_windows", "chroma_windows", "deblock"))
     if n_partitioned(summary) <= 0:
         fail("faster-1ref coded no 16x8, 8x16 or 8x8 MB")
+    return launches
+
+
+def routes_path(main_slots):
+    """Phase 6: the main-path clip with the I slot and the first P slot on
+    the wave route, the second P slot on the region route and the third on
+    the default; the bytes must be those of phase 4's first four slots."""
+    import torch
+    from x264dsp_tpu_torch.tools.mainpath import (main_path_param,
+                                                  stacked_slot, synth_clip)
+    routes = ("wave", "wave", "region", None)
+    frame = synth_clip(W, H, torch.device("cuda"))
+    batches = [stacked_slot(frame, t, S_MAIN) for t in range(len(routes))]
+    launches, _, slots = drive(
+        "deblock routes", main_path_param(W, H, QP, KEYINT), batches,
+        ("deblock_wave_luma", "deblock_wave_chroma", "filter_regions",
+         "deblock"), routes=routes)
+    if slots != main_slots[:len(routes)]:
+        fail("the wave / region deblock routes changed the main path's "
+             "bytes")
+    n_diag = W // 16 + 2 * (H // 16) - 2
+    want = {"deblock_wave_luma": 2, "deblock_wave_chroma": 2,
+            "filter_regions": n_diag, "deblock": 1}
+    got = {k: launches[k] for k in want}
+    print(f"deblock routes: bytes equal the main path's first "
+          f"{len(routes)} slots; launches {got}")
+    if got != want:
+        fail(f"deblock route launches {got}, expected {want}")
     return launches
 
 
@@ -420,9 +554,13 @@ def main() -> None:
     setup()
     kernels = kernel_checks()
     card_vs_cpu()
-    launches = main_path()
-    # K4 runs only on the partition path: its count comes from phase 5
+    launches, main_slots = main_path()
+    # K4 runs only on the partition path, K5a / K5b / K6 only on their
+    # deblock routes: their counts come from phases 5 and 6
     launches["sad_surfaces_8x8"] = faster_path()["sad_surfaces_8x8"]
+    routed = routes_path(main_slots)
+    for k in ("deblock_wave_luma", "deblock_wave_chroma", "filter_regions"):
+        launches[k] = routed[k]
     for k in kernels:
         k["launches"] = launches[k["name"].split("[")[0]]
     if "jax" in sys.modules:

@@ -3,7 +3,10 @@
 On the CPU, x264dsp_tpu_torch.BatchEncoder and the JAX BatchEncoder get
 the same 64x48, 2-stream, keyint-4 clip (I P P P I); the Annex-B bytes
 must be identical and each stream must decode (tools/h264_decode.py) to
-the port's own reconstruction.
+the port's own reconstruction. Both pack CAVLC in their frame step, so
+each slot's payload buffer, bit count, skip count, row positions and
+overflow flag are compared too, and the clip is encoded once more with
+the wave and region deblock routes.
 """
 
 import inspect
@@ -18,6 +21,7 @@ import torch
 
 import x264dsp_tpu as xt
 import x264dsp_tpu_torch as xtt
+from torch_jaxref import light_xla
 from x264dsp_tpu import params as P
 
 REPO = Path(__file__).resolve().parent.parent
@@ -25,6 +29,7 @@ sys.path.insert(0, str(REPO / "tools"))
 from h264_decode import Decoder  # noqa: E402
 
 W, H, S, N = 64, 48, 2, 5
+ROUTES = ("wave", "region", "wave", "region", None)   # I P P P I
 
 
 def _clip(seed):
@@ -56,12 +61,22 @@ def _params(pkg=xtt):
     return p
 
 
-def _run(be, clips):
+PACKED = ("payload", "bits", "ov", "n_skip", "rows")
+
+
+def _run(be, clips, routes=None, slots=None):
+    """Encode the clips; `routes` sets the port's deblock route per slot,
+    `slots` collects each slot's device-CAVLC outputs."""
     streams, recons = [b""] * S, []
     for t in range(N + 1):
         pics = ([xt.Picture.from_planes(*clips[s][t]) for s in range(S)]
                 if t < N else None)
+        if routes is not None and t < N:
+            be.deblock_route = routes[t]
         out = be.encode_batch(pics)
+        if t < N and slots is not None:
+            slots.append({k: np.asarray(be._pending["out"][k])
+                          for k in PACKED})
         if t < N and hasattr(be, "device"):
             recons.append([np.asarray(r) for r in be.last_recon])
         if out is not None:
@@ -75,22 +90,51 @@ def _run(be, clips):
 def encoded():
     clips = [_clip(11 + s) for s in range(S)]
     xtt.reset_kernel_launches()
-    port = _run(xtt.BatchEncoder(_params(), S, device="cpu"), clips)
+    port_slots, jax_slots = [], []
+    port = _run(xtt.BatchEncoder(_params(), S, device="cpu"), clips,
+                slots=port_slots)
+    routed = _run(xtt.BatchEncoder(_params(), S, device="cpu"), clips,
+                  routes=ROUTES)
     launches = xtt.kernel_launches()
-    jax_run = _run(xt.BatchEncoder(_params(xt), S), clips)
-    return port, jax_run, launches
+    with light_xla():
+        jax_run = _run(xt.BatchEncoder(_params(xt), S), clips,
+                       slots=jax_slots)
+    return port, jax_run, launches, routed, port_slots, jax_slots
 
 
 def test_bytes_match_jax_batch_encoder(encoded):
-    (port_streams, _, port_sum), (jax_streams, _, jax_sum), _ = encoded
+    (port_streams, _, port_sum), (jax_streams, _, jax_sum), *_ = encoded
     for s in range(S):
         assert len(port_streams[s]) > 0
         assert port_streams[s] == jax_streams[s], f"stream {s}"
     assert port_sum == jax_sum
 
 
+@pytest.mark.parametrize("key", PACKED)
+def test_device_cavlc_outputs_match_jax(encoded, key):
+    """Every slot's packer output (I and P slices) equals the JAX
+    cavlc_i_payload / cavlc_p_payload output inside its frame step."""
+    *_, port_slots, jax_slots = encoded
+    assert len(port_slots) == len(jax_slots) == N
+    for t, (got, want) in enumerate(zip(port_slots, jax_slots)):
+        assert not want["ov"].any()
+        np.testing.assert_array_equal(got[key], want[key],
+                                      err_msg=f"slot {t}")
+
+
+def test_deblock_routes_write_the_same_bytes(encoded):
+    """The wave route on the I slots and a P slot, the region route on two
+    P slots: the bytes, the recon and the summary of the default route."""
+    (streams, recons, summary), _, _, routed, *_ = encoded
+    assert routed[0] == streams
+    assert routed[2] == summary
+    for got, want in zip(routed[1], recons):
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+
+
 def test_streams_decode_to_port_recon(encoded):
-    (streams, recons, _), _, _ = encoded
+    (streams, recons, _), *_ = encoded
     for s in range(S):
         dec = Decoder().decode(streams[s])
         assert len(dec) == N
@@ -101,7 +145,8 @@ def test_streams_decode_to_port_recon(encoded):
 
 
 def test_cpu_run_launches_no_kernel(encoded):
-    *_, launches = encoded
+    launches = encoded[2]
+    assert len(launches) == 8
     assert all(n == 0 for n in launches.values())
 
 
@@ -188,42 +233,64 @@ def test_picture_count_checked():
 
 
 def test_overflow_screen_matches_jax():
-    """The copied CAVLC overflow screen flags the MBs the JAX encoder's
-    flags (escape level codes past the baseline limit)."""
+    """The device overflow flag is raised for the streams in which the JAX
+    encoder's host screen flags an MB (escape level codes past the
+    baseline limit), and for no other."""
     from x264dsp_tpu.encoder import core as JC
-    from x264dsp_tpu_torch.encoder import core as TC
+    from x264dsp_tpu_torch.entropy import cavlc_device as TCD
     rng = np.random.default_rng(8)
     mb_h, mb_w = 3, 4
+    grid = (2, mb_h, mb_w)
     for slice_type in (P.SLICE_TYPE_I, P.SLICE_TYPE_P):
-        syn = {"luma_levels": rng.integers(-3, 4, (mb_h, mb_w, 16, 16)),
-               "chroma_dc_levels": rng.integers(-3, 4, (mb_h, mb_w, 2, 4)),
-               "chroma_ac_levels": rng.integers(-3, 4,
-                                                (mb_h, mb_w, 2, 4, 16)),
-               "cbp_luma": np.full((mb_h, mb_w), 15),
-               "cbp_chroma": np.full((mb_h, mb_w), 2)}
-        syn["luma_levels"][0, 1, 3, 2] = 5000
-        syn["luma_levels"][2, 2, 0, 0] = 300
-        syn["chroma_ac_levels"][1, 0, 1, 2, 5] = -4000
+        # stream 0 carries overflowing levels, stream 1 only a large level
+        # that the screen suspects and the exact writer clears
+        syn = {"luma_levels": rng.integers(-3, 4, grid + (16, 16)),
+               "chroma_dc_levels": rng.integers(-3, 4, grid + (2, 4)),
+               "chroma_ac_levels": rng.integers(-3, 4, grid + (2, 4, 16)),
+               "cbp_luma": np.full(grid, 15),
+               "cbp_chroma": np.full(grid, 2)}
+        syn["luma_levels"][0, 0, 1, 3, 2] = 5000
+        syn["luma_levels"][:, 2, 2, 0, 0] = 300
+        syn["chroma_ac_levels"][0, 1, 0, 1, 2, 5] = -4000
         if slice_type == P.SLICE_TYPE_I:
-            syn["mb_type"] = np.ones((mb_h, mb_w), int)
-            syn["mb_type"][2, 3] = 0
-            syn["luma_dc_levels"] = rng.integers(-3, 4, (mb_h, mb_w, 16))
-            syn["luma_dc_levels"][2, 3, 4] = 9000
+            syn["mb_type"] = np.ones(grid, int)
+            syn["mb_type"][:, 2, 3] = 0
+            syn["luma_dc_levels"] = rng.integers(-3, 4, grid + (16,))
+            syn["luma_dc_levels"][0, 2, 3, 4] = 9000
+            syn["nz_luma_dc"] = 1 - syn["mb_type"]
+            syn["i16_mode"] = rng.integers(0, 4, grid)
+            syn["i4_modes"] = rng.integers(0, 9, grid + (16,))
+            syn["chroma_mode"] = rng.integers(0, 4, grid)
+        else:
+            syn["partition"] = np.zeros(grid, int)
+            syn["ref"] = np.zeros(grid, int)
+            syn["mv8"] = np.repeat(rng.integers(-20, 20, grid + (1, 1, 2)),
+                                   4, 3).reshape(grid + (2, 2, 2))
         fake = type("Enc", (), {"mb_h": mb_h, "mb_w": mb_w})()
-        want = JC.EncoderCore._detect_cavlc_overflow(fake, syn, slice_type)
-        got = TC.detect_cavlc_overflow(syn, slice_type, mb_h, mb_w)
-        assert want.any()
-        np.testing.assert_array_equal(got, want)
+        want = [JC.EncoderCore._detect_cavlc_overflow(
+            fake, {k: v[s] for k, v in syn.items()}, slice_type).any()
+            for s in range(2)]
+        assert want == [True, False]
+        syn_t = {k: torch.from_numpy(v.astype(np.int32))
+                 for k, v in syn.items()}
+        qp_mb = torch.full(grid, 26, dtype=torch.int32)
+        hv, hl = TCD.header_elements(b"\xa5\x40", 3)
+        if slice_type == P.SLICE_TYPE_I:
+            out = TCD.cavlc_i_payload(syn_t, qp_mb, 26, mb_h, mb_w, hv, hl,
+                                      1 << 16)
+        else:
+            out = TCD.cavlc_p_payload(syn_t, qp_mb, 26, 1, mb_h, mb_w, hv,
+                                      hl, 1 << 16)
+        assert out[-1].tolist() == want
 
 
-def test_overflow_raises(monkeypatch):
-    """A flagged overflow stops the BatchEncoder, as in the JAX one."""
-    from x264dsp_tpu_torch.encoder import core as TC
-    monkeypatch.setattr(TC, "detect_cavlc_overflow",
-                        lambda syn, st, h, w: np.ones((h, w), bool))
+def test_overflow_raises():
+    """A raised device overflow flag stops the BatchEncoder with the JAX
+    encoder's message; here the payload cap is cut below the I slice."""
     be = xtt.BatchEncoder(_params(), S, device="cpu")
+    be._cap = 64
     clip = _clip(2)
     pics = [xt.Picture.from_planes(*clip[0]) for _ in range(S)]
     be.encode_batch(pics)
-    with pytest.raises(RuntimeError, match="overflow"):
+    with pytest.raises(RuntimeError, match="device CAVLC overflow"):
         be.encode_batch(None)

@@ -12,6 +12,7 @@ import torch
 import jax.numpy as jnp
 
 from conftest import make_clip
+from torch_jaxref import light_xla
 from x264dsp_tpu import params as P
 from x264dsp_tpu.encoder import core as JC
 from x264dsp_tpu.encoder import inter_frame as JIF
@@ -48,9 +49,11 @@ def i_frames(clips):
     jax_out = []
     for s, qp in enumerate(QPS):
         y, u, v = clips[s][0]
-        out = JIN.encode_i_frame(
-            y, u, v, qp, int(CHROMA_QP_TABLE[qp]), int(JC.LAMBDA_TAB[qp]),
-            mb_w=MB_W, mb_h=MB_H, use_satd=True, i4x4_enabled=True)
+        with light_xla():
+            out = JIN.encode_i_frame(
+                y, u, v, qp, int(CHROMA_QP_TABLE[qp]),
+                int(JC.LAMBDA_TAB[qp]), mb_w=MB_W, mb_h=MB_H, use_satd=True,
+                i4x4_enabled=True)
         jax_out.append({k: np.asarray(a) for k, a in out.items()})
     qpc = [int(CHROMA_QP_TABLE[q]) for q in QPS]
     lam = [int(JC.LAMBDA_TAB[q]) for q in QPS]
@@ -84,13 +87,14 @@ def p_frames(clips, i_frames):
     for s, qp in enumerate(QPS):
         y, u, v = clips[s][1]
         g = lambda x: jnp.full((MB_H, MB_W), x, jnp.int32)  # noqa: E731
-        out = JIF.encode_p_frame(
-            jnp.asarray(y), jnp.asarray(u), jnp.asarray(v),
-            *(jnp.asarray(r) for r in refs[s]), g(qp),
-            g(int(CHROMA_QP_TABLE[qp])), g(int(JC.LAMBDA_TAB[qp])),
-            mb_w=MB_W, mb_h=MB_H, me_range=ME_RANGE, mv_range=MV_RANGE,
-            dct_decimate=True, fast_pskip=True, partitions=False, n_ref=1,
-            subme=1, me_method=0)
+        with light_xla():
+            out = JIF.encode_p_frame(
+                jnp.asarray(y), jnp.asarray(u), jnp.asarray(v),
+                *(jnp.asarray(r) for r in refs[s]), g(qp),
+                g(int(CHROMA_QP_TABLE[qp])), g(int(JC.LAMBDA_TAB[qp])),
+                mb_w=MB_W, mb_h=MB_H, me_range=ME_RANGE, mv_range=MV_RANGE,
+                dct_decimate=True, fast_pskip=True, partitions=False,
+                n_ref=1, subme=1, me_method=0)
         jax_out.append({k: np.asarray(a) for k, a in out.items()})
     qpc = [int(CHROMA_QP_TABLE[q]) for q in QPS]
     lam = [int(JC.LAMBDA_TAB[q]) for q in QPS]

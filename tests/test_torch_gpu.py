@@ -105,6 +105,102 @@ def test_deblock_kernel_matches_plain(cuda, intra):
         assert torch.equal(g, w)
 
 
+def _deblock_args(c, intra):
+    t, rng, S = c["t"], c["rng"], c["S"]
+    H, W = MB_H * 16, MB_W * 16
+    grid = (S, MB_H, MB_W)
+    y = np.kron(rng.integers(0, 256, (S, MB_H * 4, MB_W * 4)),
+                np.ones((1, 4, 4), int)) + rng.integers(-6, 7, (S, H, W))
+    u = np.kron(rng.integers(0, 256, (S, MB_H * 2, MB_W * 2)),
+                np.ones((1, 4, 4), int))
+    qp = rng.integers(16, 50, grid)
+    if intra:
+        bs, im, feo = np.full(grid + (2, 4, 4), 3), np.ones(grid), \
+            np.zeros(grid)
+    else:
+        im = (rng.random(grid) < 0.3).astype(int)
+        bs = rng.integers(0, 3, grid + (2, 4, 4))
+        bs[im > 0] = 3
+        feo = (rng.random(grid) < 0.2) & (im == 0)
+    return [t(a) for a in (y.clip(0, 255), u, 255 - u, bs, im, feo, qp,
+                           np.minimum(qp, 39))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("intra", [False, True])
+def test_wave_kernels_match_plain(cuda, intra):
+    """K5a and K5b against their plain versions on the same lanes, and the
+    wave route against K3."""
+    args = _deblock_args(_case(cuda, 6), intra)
+    luma_l, chroma_l = TDB.wave_lanes(*args[3:], 2, -2, MB_W, MB_H)
+    n0 = dict(TDB.launches)
+    gy = TDB.deblock_wave_luma(args[0], *luma_l, MB_W, MB_H)
+    gu, gv = TDB.deblock_wave_chroma(args[1], args[2], *chroma_l, MB_W, MB_H)
+    torch.cuda.synchronize()
+    assert TDB.launches["deblock_wave_luma"] == n0["deblock_wave_luma"] + 1
+    assert TDB.launches["deblock_wave_chroma"] == \
+        n0["deblock_wave_chroma"] + 1
+    assert torch.equal(gy, TDB.deblock_wave_luma_plain(args[0], *luma_l,
+                                                       MB_W, MB_H))
+    wu, wv = TDB.deblock_wave_chroma_plain(args[1], args[2], *chroma_l,
+                                           MB_W, MB_H)
+    assert torch.equal(gu, wu) and torch.equal(gv, wv)
+    k3 = TDB.deblock_frame(*args, 2, -2, MB_W, MB_H)
+    for g, w in zip((gy, gu, gv), k3):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("intra", [False, True])
+def test_filter_regions_kernel_matches_plain(cuda, intra):
+    """K6 against its plain version on random regions with a frame's
+    lanes, and the region route against K3 (one launch per diagonal)."""
+    c = _case(cuda, 7)
+    args = _deblock_args(c, intra)
+    luma_l, chroma_l = TDB.wave_lanes(*args[3:], 0, 0, MB_W, MB_H)
+    K = 48
+    ly = [t.reshape(-1, t.shape[-1])[:K].contiguous() for t in luma_l]
+    lc = [t.reshape(-1, t.shape[-1])[:2 * K].contiguous() for t in chroma_l]
+    regy = c["t"](c["rng"].integers(0, 256, (K, 20, 20)))
+    regc = c["t"](c["rng"].integers(0, 256, (2 * K, 12, 12)))
+    lanes = (ly[0], lc[0], ly[1], ly[2], lc[1], lc[2], ly[3], ly[4], lc[3],
+             lc[4])
+    n0 = TDB.launches["filter_regions"]
+    got = TDB.filter_regions(regy, regc, *lanes)
+    torch.cuda.synchronize()
+    assert TDB.launches["filter_regions"] == n0 + 1
+    want = TDB.filter_regions_plain(regy, regc, *lanes)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    with pytest.raises(ValueError):
+        TDB.filter_regions(regy[:5], regc[:10], *(t[:5] for t in lanes))
+    n0 = TDB.launches["filter_regions"]
+    routed = TDB.deblock_frame(*args, 0, 0, MB_W, MB_H, route="region")
+    assert TDB.launches["filter_regions"] == n0 + MB_W + 2 * MB_H - 2
+    for g, w in zip(routed, TDB.deblock_frame(*args, 0, 0, MB_W, MB_H)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+def test_device_payload_matches_host_writers(cuda):
+    """An I and two P slots on the card (faster-1ref, so partitioned MBs):
+    every stream's device payload against the host C++ writers on the
+    pulled syntax."""
+    from x264dsp_tpu_torch.tools.mainpath import (faster_1ref_param,
+                                                  payload_vs_writers,
+                                                  split_motion_clip,
+                                                  stacked_slot)
+    S, w, h = 2, 64, 64
+    be = xtt.BatchEncoder(faster_1ref_param(w, h, 26, 8), S)
+    be.keep_syntax = True
+    frame = split_motion_clip(w, h, cuda)
+    for t in range(3):
+        be.encode_batch(tuple(torch.stack([frame(1 + t + s)[i]
+                                           for s in range(S)])
+                              for i in range(3)))
+        assert min(payload_vs_writers(be)) > 0
+    be.close()
+
+
 @pytest.mark.gpu
 def test_wrappers_reject_bad_arguments(cuda):
     c = _case(cuda, 3)
@@ -142,4 +238,39 @@ def test_batch_encoder_counts_kernel_launches(cuda):
         be.close()
         launches = xtt.kernel_launches()
         assert launches.pop(off) == 0
+        # the default deblock route runs K3, not K5a / K5b / K6
+        for k in ("deblock_wave_luma", "deblock_wave_chroma",
+                  "filter_regions"):
+            assert launches.pop(k) == 0
         assert all(n > 0 for n in launches.values()), launches
+
+
+@pytest.mark.gpu
+def test_batch_encoder_routes_on_the_card(cuda):
+    """Slots on the wave and region routes write the default route's bytes
+    and launch K5a, K5b and K6 (one launch per diagonal)."""
+    from x264dsp_tpu_torch.tools.mainpath import main_path_param
+    S, w, h = 2, 64, 48
+    rng = np.random.default_rng(5)
+    frames = [tuple(torch.as_tensor(rng.integers(
+        0, 256, (S, hh, ww)).astype(np.uint8))
+        for hh, ww in ((h, w), (h // 2, w // 2), (h // 2, w // 2)))
+        for _ in range(3)]
+    streams = {}
+    for routes in ((None, None, None), ("wave", "region", "wave")):
+        xtt.reset_kernel_launches()
+        be = xtt.BatchEncoder(main_path_param(w, h, 26, 8), S)
+        out = [b""] * S
+        for item, route in zip(frames + [None], routes + (None,)):
+            be.deblock_route = route
+            nals = be.encode_batch(item)
+            for s, nl in enumerate(nals or []):
+                out[s] += b"".join(n.payload for n in nl)
+        be.close()
+        streams[routes] = out
+        launches = xtt.kernel_launches()
+    assert len(set(map(tuple, streams.values()))) == 1
+    assert launches["deblock_wave_luma"] == 2
+    assert launches["deblock_wave_chroma"] == 2
+    assert launches["filter_regions"] == 4 + 2 * 3 - 2
+    assert launches["deblock"] == 0

@@ -5,9 +5,12 @@ and encode_p_frame with the DIA or HEX walk, the subme recipes and the
 integer exact); inputs come from numpy seeds.
 """
 
+from concurrent.futures import ThreadPoolExecutor
+
 import numpy as np
 import pytest
 import torch
+import jax
 import jax.numpy as jnp
 
 from x264dsp_tpu.encoder import core as JC
@@ -23,6 +26,7 @@ from x264dsp_tpu_torch.ops import mc as TMC
 from x264dsp_tpu_torch.ops import mcgather as TMG
 from x264dsp_tpu_torch.ops import me_sad as TSAD
 from x264dsp_tpu_torch.tools.mainpath import split_motion_clip
+from torch_jaxref import light_xla
 
 ME_RANGE, MV_RANGE = 16, 512
 
@@ -125,12 +129,17 @@ def test_decide_partitions_matches_jax_with_ties(subme):
     got = part.numpy()
     assert (got[:, 0, 1] == 0).all()
     assert (got[:, 1, :3] == [3, 1, 2]).all()
+    # one compiled program for both streams (eager JAX compiles every
+    # small op on its own)
+    j_decide = jax.jit(lambda c, m, f, w, l, k: JIF.decide_partitions(
+        c, m, f, w, l, mb_w, mb_h, R, MV_RANGE, skip_mask=k, subme=subme))
     for s in range(2):
         wins_j = JMG.luma_windows(jnp.asarray(ref4[s].numpy()), mb_w, mb_h)
-        jp, jmv8 = JIF.decide_partitions(
-            jnp.asarray(cost8[s]), jnp.asarray(mv16[s]), jnp.asarray(fenc[s]),
-            wins_j, jnp.asarray(lam[s]), mb_w, mb_h, R, MV_RANGE,
-            skip_mask=jnp.asarray(skip[s]), subme=subme)
+        with light_xla():
+            jp, jmv8 = j_decide(
+                jnp.asarray(cost8[s]), jnp.asarray(mv16[s]),
+                jnp.asarray(fenc[s]), wins_j, jnp.asarray(lam[s]),
+                jnp.asarray(skip[s]))
         np.testing.assert_array_equal(part[s].numpy(), np.asarray(jp))
         np.testing.assert_array_equal(mv8[s].numpy(), np.asarray(jmv8))
 
@@ -159,9 +168,10 @@ def split_frames():
             for s in range(2)]
 
 
-@pytest.fixture(scope="module", params=list(SETTINGS))
-def p_frames(request, split_frames):
-    method, subme, parts = SETTINGS[request.param]
+def _encode_both(name, split_frames):
+    """One setting through the JAX encode_p_frame (per stream) and the
+    port's (both streams stacked)."""
+    method, subme, parts = SETTINGS[name]
     refs = []
     for s in range(2):
         y0, u0, v0 = split_frames[s][0]
@@ -194,7 +204,21 @@ def p_frames(request, split_frames):
         grid([int(JC.LAMBDA_TAB[q]) for q in QPS]), MB_W, MB_H, ME_RANGE,
         MV_RANGE, True, fast_pskip=True, me_method=method, subme=subme,
         partitions=parts)
-    return request.param, jax_out, port
+    return name, jax_out, port
+
+
+@pytest.fixture(scope="module")
+def all_p_frames(split_frames):
+    """Every setting, the four JAX compiles side by side: XLA compiles
+    outside the interpreter lock, so the threads overlap."""
+    with light_xla(), ThreadPoolExecutor(len(SETTINGS)) as pool:
+        return dict(zip(SETTINGS, pool.map(
+            lambda name: _encode_both(name, split_frames), SETTINGS)))
+
+
+@pytest.fixture(scope="module", params=list(SETTINGS))
+def p_frames(request, all_p_frames):
+    return all_p_frames[request.param]
 
 
 @pytest.mark.parametrize("key", P_KEYS)

@@ -1,10 +1,12 @@
 """The port's leaf ops (pixel, transforms, intra predictors, the plane
 residual pipeline, MC) against their JAX counterparts, exact equality on
-seeded random inputs."""
+seeded random inputs. The larger JAX references run under jax.jit (one
+compiled program instead of one per small eager op)."""
 
 import numpy as np
 import pytest
 import torch
+import jax
 import jax.numpy as jnp
 
 from x264dsp_tpu.encoder import intra_frame as JIN
@@ -88,12 +90,12 @@ def test_intra_predictors_match_jax(rng):
     l16, t16 = rng.integers(0, 256, (2, n, 16))
     tl = rng.integers(0, 256, n)
     _eq(TI.predict_16x16_all(_t(l16), _t(t16), _t(tl)),
-        JI.predict_16x16_all(l16, t16, tl))
+        jax.jit(JI.predict_16x16_all)(l16, t16, tl))
     _eq(TI.predict_8x8c_all(_t(l16[:, :8]), _t(t16[:, :8]), _t(tl)),
-        JI.predict_8x8c_all(l16[:, :8], t16[:, :8], tl))
+        jax.jit(JI.predict_8x8c_all)(l16[:, :8], t16[:, :8], tl))
     l4, t4, tr4 = rng.integers(0, 256, (3, n, 4))
     _eq(TI.predict_4x4_all(_t(l4), _t(t4), _t(tl), _t(tr4)),
-        JI.predict_4x4_all(l4, t4, tl, tr4))
+        jax.jit(JI.predict_4x4_all)(l4, t4, tl, tr4))
 
 
 def test_plane_residual_pipeline_matches_jax(rng):
@@ -103,28 +105,31 @@ def test_plane_residual_pipeline_matches_jax(rng):
     pred = np.clip(fenc + rng.integers(-20, 21, (H, W)), 0, 255).astype(
         np.int32)
     qp = rng.integers(10, 45, (mb_h, mb_w)).astype(np.int32)
-    cm_j = JRP.sub_dct_cm(jnp.asarray(fenc), jnp.asarray(pred))
+    sub_dct_j = jax.jit(JRP.sub_dct_cm)
+    cm_j = sub_dct_j(jnp.asarray(fenc), jnp.asarray(pred))
     cm_t = TRP.sub_dct_cm(_t(fenc)[None], _t(pred)[None])
     _eq(cm_t[0], np.stack([np.asarray(c) for c in cm_j]))
     for intra in (False, True):
-        q_j = JRP.quant_cm(cm_j, jnp.asarray(qp), intra, 4)
+        q_j = jax.jit(lambda c, q: JRP.quant_cm(c, q, intra, 4))(
+            cm_j, jnp.asarray(qp))
         q_t = TRP.quant_cm(cm_t, _t(qp)[None], intra, 4)
         _eq(q_t[0], np.stack([np.asarray(c) for c in q_j]))
-    z_j = JRP.zigzag_order(q_j)
+    z_j = jax.jit(JRP.zigzag_order)(q_j)
     z_t = TRP.zigzag_order(q_t)
-    _eq(TRP.decimate_score_cm(z_t)[0], JRP.decimate_score_cm(z_j))
+    _eq(TRP.decimate_score_cm(z_t)[0], jax.jit(JRP.decimate_score_cm)(z_j))
     _eq(TRP.nnz_cm(z_t)[0], JRP.nnz_cm(z_j))
     _eq(TRP.luma_levels_coding(z_t, mb_h, mb_w)[0],
         JRP.luma_levels_coding(z_j, mb_h, mb_w))
     _eq(TRP.luma_nnz_coding(TRP.nnz_cm(z_t), mb_h, mb_w)[0],
         JRP.luma_nnz_coding(JRP.nnz_cm(z_j), mb_h, mb_w))
-    dq_j = JRP.dequant_cm(q_j, jnp.asarray(qp), 4)
+    dq_j = jax.jit(lambda c, q: JRP.dequant_cm(c, q, 4))(q_j,
+                                                          jnp.asarray(qp))
     dq_t = TRP.dequant_cm(q_t, _t(qp)[None], 4)
     _eq(dq_t[0], np.stack([np.asarray(c) for c in dq_j]))
     _eq(TRP.idct_add_plane(_t(pred)[None], dq_t)[0],
-        JRP.idct_add_plane(jnp.asarray(pred), dq_j))
-    zc_j = JRP.zigzag_order(JRP.sub_dct_cm(jnp.asarray(fenc[:24, :32]),
-                                           jnp.asarray(pred[:24, :32])))
+        jax.jit(JRP.idct_add_plane)(jnp.asarray(pred), dq_j))
+    zc_j = JRP.zigzag_order(sub_dct_j(jnp.asarray(fenc[:24, :32]),
+                                      jnp.asarray(pred[:24, :32])))
     zc_t = TRP.zigzag_order(TRP.sub_dct_cm(_t(fenc[:24, :32])[None],
                                            _t(pred[:24, :32])[None]))
     _eq(TRP.chroma_levels_coding(zc_t, mb_h, mb_w)[0],
@@ -146,18 +151,19 @@ def test_mc_matches_jax(rng):
     mvx = rng.integers(-60, 60, (B, 5)).astype(np.int32)
     mvy = rng.integers(-60, 60, (B, 5)).astype(np.int32)
     _eq(TMG.mc_luma_multi(wt, _t(mvx), _t(mvy), 16, 16),
-        JMG.mc_luma_multi(wj, jnp.asarray(mvx), jnp.asarray(mvy), 16, 16))
+        jax.jit(lambda w, x, y: JMG.mc_luma_multi(w, x, y, 16, 16))(
+            wj, jnp.asarray(mvx), jnp.asarray(mvy)))
     _eq(TMG.mc_luma_batched(wt, _t(mvx[:, 0]), _t(mvy[:, 0]), 8, 8, 8, 0),
-        JMG.mc_luma_batched(wj, jnp.asarray(mvx[:, 0]),
-                            jnp.asarray(mvy[:, 0]), 8, 8, 8, 0))
+        jax.jit(lambda w, x, y: JMG.mc_luma_batched(w, x, y, 8, 8, 8, 0))(
+            wj, jnp.asarray(mvx[:, 0]), jnp.asarray(mvy[:, 0])))
     _eq(TMG.mc_chroma_batched(wct, _t(mvx[:, 1]), _t(mvy[:, 1]), 4, 4, 4, 0),
-        JMG.mc_chroma_batched(wcj, jnp.asarray(mvx[:, 1]),
-                              jnp.asarray(mvy[:, 1]), 4, 4, 4, 0))
+        jax.jit(lambda w, x, y: JMG.mc_chroma_batched(w, x, y, 4, 4, 4, 0))(
+            wcj, jnp.asarray(mvx[:, 1]), jnp.asarray(mvy[:, 1])))
     bx = rng.integers(-15, 16, B).astype(np.int32)
     by = rng.integers(-15, 16, B).astype(np.int32)
     got = TMG.extract_windows4(wt, _t(bx), _t(by), 16, 16, 3)
-    want = JMG.extract_windows4(wj, jnp.asarray(bx), jnp.asarray(by), 16, 16,
-                                3)
+    want = jax.jit(lambda w, x, y: JMG.extract_windows4(w, x, y, 16, 16, 3))(
+        wj, jnp.asarray(bx), jnp.asarray(by))
     _eq(got.to(torch.int32), np.asarray(want).astype(np.int32))
 
 

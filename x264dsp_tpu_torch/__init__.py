@@ -4,9 +4,11 @@ The batched CQP / CAVLC / IPPP encoder (``BatchEncoder``) runs its frame
 step in PyTorch, with the TPU Pallas kernels of that path written by
 hand in CUDA C++ for Hopper (``csrc/``, built with nvcc at first use):
 the full-pel SAD surfaces (ops/me_sad.py: whole-MB and 8x8-quadrant),
-the MC reference windows (ops/mcgather.py) and the in-loop deblock
-(ops/deblock.py). On a CPU tensor every kernel wrapper runs its plain
-PyTorch version instead.
+the MC reference windows (ops/mcgather.py) and the in-loop deblock with
+its three routes (ops/deblock.py). On a CPU tensor every kernel wrapper
+runs its plain PyTorch version instead. The CAVLC slice payload is packed
+on the device (entropy/cavlc_device.py), so only payload bytes cross to
+the host.
 
 Entry points run on the card: ``BatchEncoder(param, n_streams)`` uses
 ``device="cuda"`` and raises when torch finds no GPU; the CPU runs only
@@ -28,16 +30,11 @@ from .params import (  # noqa: F401
 def kernel_launches() -> dict:
     """Launch counts of the hand-written CUDA kernels, by name."""
     from .ops import deblock, mcgather, me_sad
-    return {"sad_surface16": me_sad.launches["sad_surface16"],
-            "sad_surfaces_8x8": me_sad.launches["sad_surfaces_8x8"],
-            "luma_windows": mcgather.launches["luma_windows"],
-            "chroma_windows": mcgather.launches["chroma_windows"],
-            "deblock": deblock.launches}
+    return {**me_sad.launches, **mcgather.launches, **deblock.launches}
 
 
 def reset_kernel_launches() -> None:
     from .ops import deblock, mcgather, me_sad
-    deblock.launches = 0
-    for counts in (me_sad.launches, mcgather.launches):
+    for counts in (me_sad.launches, mcgather.launches, deblock.launches):
         for k in counts:
             counts[k] = 0

@@ -1,5 +1,10 @@
-// Whole-frame H.264 in-loop deblocking filter (kernel K3).
+// H.264 in-loop deblocking filter: kernel K3 (whole frame from the raw
+// per-MB grids) and, further down, K5a / K5b (whole frame from precomputed
+// filter lanes) and K6 (the edge chain on gathered regions). All share the
+// edge filters edge_luma / edge_chroma below.
 //
+// K3
+// --
 // Replaces x264dsp_tpu/ops/pallas/deblock_skew.py::deblock_skew_call
 // (Pallas _kernel, _edge_luma, _edge_chroma), reached from
 // ops/deblock.py::deblock_frame_skew_batched: the normal (bS < 4) and
@@ -244,5 +249,244 @@ extern "C" int x264t_deblock(int* y, int* u, int* v, const int* bs,
     Params P{bs, intra, feo, qp, qpc, tab, mb_h, mb_w, alpha_off, beta_off};
     dim3 grid(S, 2);
     deblock_kernel<<<grid, NTHREADS, 0, (cudaStream_t)stream>>>(y, u, v, P);
+    return (int)cudaGetLastError();
+}
+
+
+// ---------------------------------------------------------------------------
+// K5a / K5b: whole-frame wavefront from precomputed per-diagonal lanes
+// ---------------------------------------------------------------------------
+//
+// Replace x264dsp_tpu/ops/pallas/deblock_wave.py::deblock_wave_luma
+// (_luma_kernel, _filter_luma_regs) and ::deblock_wave_chroma
+// (_chroma_kernel, _filter_chroma_regs), reached from ops/deblock.py::
+// deblock_frame_wave_batched. They compute K3's function, but every filter
+// parameter comes from the caller's lane tensors, laid out per stream,
+// diagonal d (x + 2y = d) and slot k (MB row y0(d) + k):
+//   luma   tc0y (S, D, K, 128) at [dir * 64 + edge * 16 + pixel line],
+//          eny / uiy / aly / bly (S, D, K, 8) at [dir * 4 + edge]
+//          (enabled, intra filter, alpha, beta);
+//   chroma tcc (S, D, 2K, 32) at [dir * 16 + edge * 8 + line] (tc0 + 1),
+//          enc / uic / alc / blc (S, D, 2K, 4) at [dir * 2 + edge], slot
+//          2k for u and 2k + 1 for v.
+// An unused slot has every enable 0.
+//
+// Bound on the H100: as K3, the latency of the D dependent diagonal steps,
+// not bytes or operations. Design: one block per stream walks all
+// diagonals in the plane itself (global memory; a 1080p int32 plane fits
+// the L2 cache), 16 threads per slot, __syncthreads between the vertical
+// and the horizontal edges and between diagonals. A thread addresses
+// plane[16y + r][16x + c] directly: the TPU kernel's 256-wide superwindow,
+// its one-hot column matmuls and additive one-hot placements stand in for
+// loads and stores it does not have. Pixels left of or above the frame
+// read as 0 and are never written.
+
+// One luma pixel line across its 4 edges, parameters from the lanes:
+// px points at the line's first pixel inside the MB, tc0 at this line's
+// lane of edge 0 (edges are 16 lanes apart), en / ui / al / bl at edge 0.
+__device__ __forceinline__ void luma_line_lanes(
+        int* px, long long step, bool has_nb, const int* tc0, const int* en,
+        const int* ui, const int* al, const int* bl) {
+    int a[20];
+#pragma unroll
+    for (int i = 0; i < 20; ++i)
+        a[i] = (i >= 4 || has_nb) ? px[(i - 4) * step] : 0;
+#pragma unroll
+    for (int ed = 0; ed < 4; ++ed)
+        if (en[ed] != 0)
+            edge_luma(a, 4 + 4 * ed, al[ed], bl[ed], tc0[16 * ed],
+                      ui[ed] != 0);
+#pragma unroll
+    for (int i = 1; i < 20; ++i)
+        if (i >= 4 || has_nb) px[(i - 4) * step] = a[i];
+}
+
+// One chroma pixel line across its 2 edges (edges are 8 lanes apart).
+__device__ __forceinline__ void chroma_line_lanes(
+        int* px, long long step, bool has_nb, const int* tc, const int* en,
+        const int* ui, const int* al, const int* bl) {
+    int a[12];
+#pragma unroll
+    for (int i = 0; i < 12; ++i)
+        a[i] = (i >= 4 || has_nb) ? px[(i - 4) * step] : 0;
+#pragma unroll
+    for (int ed = 0; ed < 2; ++ed)
+        if (en[ed] != 0)
+            edge_chroma(a, 4 + 4 * ed, al[ed], bl[ed], tc[8 * ed],
+                        ui[ed] != 0);
+#pragma unroll
+    for (int i = 2; i < 12; ++i)
+        if (i >= 4 || has_nb) px[(i - 4) * step] = a[i];
+}
+
+#define WAVE_MAX_THREADS 1024
+
+__global__ void __launch_bounds__(WAVE_MAX_THREADS)
+deblock_wave_luma_kernel(int* y, const int* tc0y, const int* eny,
+                         const int* uiy, const int* aly, const int* bly,
+                         int mb_h, int mb_w, int K) {
+    const int s = blockIdx.x;
+    const int n_diag = mb_w + 2 * mb_h - 2;
+    const int lane = threadIdx.x & 15;          // 16 threads per slot
+    const int n_slots = blockDim.x >> 4;
+    const int W = 16 * mb_w, H = 16 * mb_h;
+    int* plane = y + (long long)s * H * W;
+    for (int d = 0; d < n_diag; ++d) {
+        const int y0 = d - mb_w + 1 > 0 ? (d - mb_w + 2) / 2 : 0;
+        for (int dir = 0; dir < 2; ++dir) {
+            for (int k = threadIdx.x >> 4; k < K; k += n_slots) {
+                const int mby = y0 + k, mbx = d - 2 * mby;
+                if (mby >= mb_h || mbx < 0) break;
+                const long long slot = ((long long)s * n_diag + d) * K + k;
+                const int* tc0 = tc0y + slot * 128 + dir * 64 + lane;
+                const long long e0 = slot * 8 + dir * 4;
+                if (dir == 0)       // row `lane`, vertical edges
+                    luma_line_lanes(
+                        plane + (long long)(16 * mby + lane) * W + 16 * mbx,
+                        1, mbx > 0, tc0, eny + e0, uiy + e0, aly + e0,
+                        bly + e0);
+                else                // column `lane`, horizontal edges
+                    luma_line_lanes(
+                        plane + (long long)(16 * mby) * W + 16 * mbx + lane,
+                        W, mby > 0, tc0, eny + e0, uiy + e0, aly + e0,
+                        bly + e0);
+            }
+            __syncthreads();
+        }
+    }
+}
+
+__global__ void __launch_bounds__(WAVE_MAX_THREADS)
+deblock_wave_chroma_kernel(int* u, int* v, const int* tcc, const int* enc,
+                           const int* uic, const int* alc, const int* blc,
+                           int mb_h, int mb_w, int K) {
+    const int s = blockIdx.x;
+    const int n_diag = mb_w + 2 * mb_h - 2;
+    const int ch = (threadIdx.x >> 3) & 1;      // 8 threads per (slot, plane)
+    const int lane = threadIdx.x & 7;
+    const int n_slots = blockDim.x >> 4;
+    const int Wc = 8 * mb_w, Hc = 8 * mb_h;
+    int* plane = (ch ? v : u) + (long long)s * Hc * Wc;
+    for (int d = 0; d < n_diag; ++d) {
+        const int y0 = d - mb_w + 1 > 0 ? (d - mb_w + 2) / 2 : 0;
+        for (int dir = 0; dir < 2; ++dir) {
+            for (int k = threadIdx.x >> 4; k < K; k += n_slots) {
+                const int mby = y0 + k, mbx = d - 2 * mby;
+                if (mby >= mb_h || mbx < 0) break;
+                const long long slot =
+                    ((long long)s * n_diag + d) * 2 * K + 2 * k + ch;
+                const int* tc = tcc + slot * 32 + dir * 16 + lane;
+                const long long e0 = slot * 4 + dir * 2;
+                if (dir == 0)
+                    chroma_line_lanes(
+                        plane + (long long)(8 * mby + lane) * Wc + 8 * mbx,
+                        1, mbx > 0, tc, enc + e0, uic + e0, alc + e0,
+                        blc + e0);
+                else
+                    chroma_line_lanes(
+                        plane + (long long)(8 * mby) * Wc + 8 * mbx + lane,
+                        Wc, mby > 0, tc, enc + e0, uic + e0, alc + e0,
+                        blc + e0);
+            }
+            __syncthreads();
+        }
+    }
+}
+
+// 16 threads per slot, whole warps, at most WAVE_MAX_THREADS: a frame whose
+// longest diagonal has more slots loops over them.
+static int wave_threads(int K) {
+    const int t = ((16 * K + 31) / 32) * 32;
+    return t < 32 ? 32 : (t > WAVE_MAX_THREADS ? WAVE_MAX_THREADS : t);
+}
+
+extern "C" int x264t_deblock_wave_luma(int* y, const int* tc0y,
+                                       const int* eny, const int* uiy,
+                                       const int* aly, const int* bly, int S,
+                                       int mb_h, int mb_w, int K,
+                                       void* stream) {
+    deblock_wave_luma_kernel<<<S, wave_threads(K), 0,
+                               (cudaStream_t)stream>>>(
+        y, tc0y, eny, uiy, aly, bly, mb_h, mb_w, K);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int x264t_deblock_wave_chroma(int* u, int* v, const int* tcc,
+                                         const int* enc, const int* uic,
+                                         const int* alc, const int* blc,
+                                         int S, int mb_h, int mb_w, int K,
+                                         void* stream) {
+    deblock_wave_chroma_kernel<<<S, wave_threads(K), 0,
+                                 (cudaStream_t)stream>>>(
+        u, v, tcc, enc, uic, alc, blc, mb_h, mb_w, K);
+    return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// K6: the 12-edge chain on gathered regions
+// ---------------------------------------------------------------------------
+//
+// Replaces x264dsp_tpu/ops/pallas/deblock_filter.py::filter_regions
+// (_kernel), called once per diagonal by the region route of ops/deblock.py::
+// deblock_frame: regy (K, 20, 20) luma and regc (2K, 12, 12) chroma regions
+// (u then v per MB; the MB sits at [4:, 4:], its left and top halo in front)
+// and the lanes of K5 without the stream and diagonal axes. All four
+// vertical edges, then all four horizontal ones (2 + 2 for chroma): a
+// horizontal edge reads pixels a vertical edge wrote.
+//
+// Bound: bytes (each region and lane read once, each region written once);
+// a launch of one diagonal moves under 2 MB. Design: one warp per MB keeps
+// its three regions in shared memory; threads 0-15 own a luma pixel line
+// each, threads 16-31 a chroma line of u or v, with a block sync between
+// the directions. The caller pads K to a multiple of 16 with zero regions
+// and zero enables, which filter to themselves.
+
+__global__ void __launch_bounds__(32)
+filter_regions_kernel(int* oy, int* oc, const int* regy, const int* regc,
+                      const int* tc0y, const int* tcc, const int* eny,
+                      const int* uiy, const int* enc, const int* uic,
+                      const int* aly, const int* bly, const int* alc,
+                      const int* blc) {
+    __shared__ int sy[20 * 20];
+    __shared__ int sc[2 * 12 * 12];
+    const long long k = blockIdx.x;
+    const int t = threadIdx.x;
+    for (int i = t; i < 400; i += 32) sy[i] = regy[k * 400 + i];
+    for (int i = t; i < 288; i += 32) sc[i] = regc[k * 288 + i];
+    __syncthreads();
+    for (int dir = 0; dir < 2; ++dir) {
+        if (t < 16) {
+            int* px = dir == 0 ? sy + (4 + t) * 20 + 4 : sy + 4 * 20 + 4 + t;
+            const long long e0 = k * 8 + dir * 4;
+            luma_line_lanes(px, dir == 0 ? 1 : 20, true,
+                            tc0y + k * 128 + dir * 64 + t, eny + e0,
+                            uiy + e0, aly + e0, bly + e0);
+        } else {
+            const int ch = (t - 16) >> 3, l = t & 7;
+            int* reg = sc + ch * 144;
+            int* px = dir == 0 ? reg + (4 + l) * 12 + 4 : reg + 4 * 12 + 4 + l;
+            const long long kc = 2 * k + ch;
+            const long long e0 = kc * 4 + dir * 2;
+            chroma_line_lanes(px, dir == 0 ? 1 : 12, true,
+                              tcc + kc * 32 + dir * 16 + l, enc + e0,
+                              uic + e0, alc + e0, blc + e0);
+        }
+        __syncthreads();
+    }
+    for (int i = t; i < 400; i += 32) oy[k * 400 + i] = sy[i];
+    for (int i = t; i < 288; i += 32) oc[k * 288 + i] = sc[i];
+}
+
+extern "C" int x264t_filter_regions(int* oy, int* oc, const int* regy,
+                                    const int* regc, const int* tc0y,
+                                    const int* tcc, const int* eny,
+                                    const int* uiy, const int* enc,
+                                    const int* uic, const int* aly,
+                                    const int* bly, const int* alc,
+                                    const int* blc, int K, void* stream) {
+    if (K <= 0) return 0;
+    filter_regions_kernel<<<K, 32, 0, (cudaStream_t)stream>>>(
+        oy, oc, regy, regc, tc0y, tcc, eny, uiy, enc, uic, aly, bly, alc,
+        blc);
     return (int)cudaGetLastError();
 }

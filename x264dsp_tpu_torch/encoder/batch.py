@@ -7,11 +7,16 @@ S independent streams encode in lockstep, one batched frame step per
 slot on the chosen device (every tensor has a leading stream axis).
 Output is pipelined one slot behind input, like the JAX BatchEncoder:
 encode_batch(pics) returns the PREVIOUS slot's NALs (None on the first
-call) and encode_batch(None) drains. The previous slot's syntax is
-pulled to the host and its slices are written by the C++ CAVLC writers
-in a thread pool (ctypes releases the GIL) while the device runs the
-current slot. The reference planes are not updated in place: each slot
-allocates new planes and the old ones are freed when replaced.
+call) and encode_batch(None) drains. The frame step packs each slot's
+CAVLC slice payloads on the device (entropy/cavlc_device.py); the host
+pulls the bit counts, the overflow flags and the stats vector, then a
+power-of-two bucket of payload bytes, and frames the NALs. The
+reference planes are not updated in place: each slot allocates new
+planes and the old ones are freed when replaced.
+
+``deblock_route`` (None, "wave" or "region"; see ops/deblock.py) is a
+plain attribute read at each slot, so it may change between slots; all
+three routes write the same bytes.
 """
 
 from __future__ import annotations
@@ -23,7 +28,7 @@ import torch
 
 from .. import params as P
 from ..api import NAL
-from ..entropy import native
+from ..entropy import cavlc_device as CD
 from ..entropy.bitstream import BitWriter, nal_unit
 from . import core as C
 from .ratecontrol import RateControl
@@ -74,7 +79,11 @@ class BatchEncoder:
             raise P.ValidationError("the PyTorch BatchEncoder runs subme "
                                     "1-11 (subme 0 not ported)")
         self.device = resolve_device(device)
-        native.get_lib()        # build the C++ CAVLC writers now, or raise
+        self.deblock_route = None
+        # keep_syntax: hold the newest slot's device syntax, header and QP
+        # in last_slot (tools/mainpath.payload_vs_writers reads them)
+        self.keep_syntax = False
+        self.last_slot = None
         self.S = int(n_streams)
         self.sps = SPS.init(p, p.i_sps_id)
         self.pps = PPS.init(p, self.sps, p.i_sps_id)
@@ -97,7 +106,7 @@ class BatchEncoder:
         self._cap = -(-cap // 4) * 4
         self.clock = C.StageClock(self.device, profile)
         # profile: per-slot (slice type, {stage: seconds}) for the stages
-        # encode, deblock, ref_planes, pull, cavlc
+        # encode, cavlc (device packer), deblock, ref_planes, pull (payload)
         self.slot_times = []
 
     # ------------------------------------------------------------------
@@ -132,73 +141,55 @@ class BatchEncoder:
                     use_satd=p.analyse.i_subpel_refine > 0,
                     i4x4=bool(p.analyse.intra & P.ANALYSE_I4x4),
                     deblock_on=C.deblock_enabled(p, qp),
+                    deblock_route=self.deblock_route,
+                    cap_bytes=self._cap,
                     alpha_off=p.i_deblocking_filter_alphac0 * 2,
                     beta_off=p.i_deblocking_filter_beta * 2,
                     cqpo=p.analyse.i_chroma_qp_offset)
 
     # ------------------------------------------------------------------
-    def _start_entropy(self, rec):
-        """Pull the slot's syntax and submit one slice writer per stream
-        to the pool. Returns the futures."""
-        is_p = rec["slice_type"] == P.SLICE_TYPE_P
+    def _finish_pending(self):
+        """Pull the previous slot's payload and frame its NALs (the JAX
+        BatchEncoder._finish_pending)."""
+        if self._pending is None:
+            return None
+        rec, self._pending = self._pending, None
+        out = rec["out"]
+        S = self.S
         self.clock.start()
-        syns = C.pull_syntax(rec["syn"], C.SYN_P if is_p else C.SYN_I,
-                             self.S)
+        # one small pull: bits, overflow flags, the summed stats vector
+        meta = torch.cat([out["bits"].long(), out["ov"].long(),
+                          out["stats"].sum(0).long()]).cpu().numpy()
+        bits, ov, vec = meta[:S], meta[S:2 * S], meta[2 * S:]
+        if ov.any() or (bits > self._cap * 8).any():
+            raise RuntimeError(
+                "device CAVLC overflow in BatchEncoder (pathological "
+                "content for the payload cap); use Encoder for this "
+                "stream")
+        nbytes = (bits + 7) >> 3
+        bucket = min(1 << max(12, int(nbytes.max() - 1).bit_length()),
+                     self._cap)
+        raw = out["payload"][:, :bucket].cpu().numpy()
         self.clock.mark("pull")
-        for s, syn in enumerate(syns):
-            if C.detect_cavlc_overflow(syn, rec["slice_type"], self.mb_h,
-                                       self.mb_w).any():
-                raise RuntimeError(
-                    f"CAVLC level overflow in stream {s} (pathological "
-                    "content for baseline CAVLC); use Encoder for this "
-                    "stream")
-        qp = rec["qp"]
-        qp_grid = np.full((self.mb_h, self.mb_w), qp, np.int16)
-        hdr = rec["header"]
-
-        def one(syn):
-            if is_p:
-                payload, n_skip = native.write_slice_p(
-                    hdr, self.mb_w, self.mb_h, qp, syn, qp_mb=qp_grid)
-            else:
-                payload, n_skip = native.write_slice_i(
-                    hdr, self.mb_w, self.mb_h, qp, syn, qp_mb=qp_grid), 0
-            return payload, n_skip
-        futures = [self._pool.submit(one, syn) for syn in syns]
-        if self.clock.enabled:
-            # profiling serializes the pipeline so the writers' time is seen
-            for f in futures:
-                f.result()
-            self.clock.mark("cavlc")
-            rec["times"].update({k: self.clock.times.pop(k, 0.0)
-                                 for k in ("pull", "cavlc")})
-        return futures
-
-    def _finish(self, rec, futures):
-        """Collect the slot's slices and frame its NALs."""
-        results = [f.result() for f in futures]
         nal_type = P.NAL_SLICE_IDR if rec["is_idr"] else P.NAL_SLICE
-        out_nals = []
-        for payload, _ in results:
-            if len(payload) > self._cap:
-                raise RuntimeError("CAVLC slice exceeds the BatchEncoder "
-                                   "payload cap; use Encoder for this stream")
+
+        def one(s):
             nals = []
             if rec["first"] and self.param.b_repeat_headers:
                 nals.extend(self.headers())
             nals.append(NAL(nal_type, P.NAL_PRIORITY_HIGHEST,
                             nal_unit(nal_type, P.NAL_PRIORITY_HIGHEST,
-                                     payload)))
-            out_nals.append(nals)
+                                     raw[s, :nbytes[s]].tobytes())))
+            return nals
+        out_nals = list(self._pool.map(one, range(S)))
         slice_type = rec["slice_type"]
-        vec = rec["stats"].sum(0).cpu().numpy()
         self.frames[slice_type] += self.S
         self.bytes[slice_type] += sum(len(n.payload) for nl in out_nals
                                       for n in nl)
         h = self.mb_hist
         if slice_type == P.SLICE_TYPE_P:
-            n_skip = sum(n for _, n in results)
-            part = vec[0:4].copy()
+            n_skip = int(vec[0])
+            part = vec[1:5].copy()
             part[0] -= n_skip
             h["P_SKIP"] = h.get("P_SKIP", 0) + n_skip
             for name, n in zip(("P_L0", "P_16x8", "P_8x16", "P_8x8"), part):
@@ -210,6 +201,7 @@ class BatchEncoder:
             h["I_16x16"] = (h.get("I_16x16", 0)
                             + self.S * self.mb_w * self.mb_h - n_i4)
         if self.clock.enabled:
+            rec["times"]["pull"] = self.clock.times.pop("pull", 0.0)
             self.slot_times.append((slice_type, rec["times"]))
         return out_nals
 
@@ -235,10 +227,9 @@ class BatchEncoder:
         triple of tensors or arrays, or None to drain. Returns the
         PREVIOUS slot's per-stream NAL lists (None while the pipeline
         fills)."""
-        pending, self._pending = self._pending, None
-        futures = self._start_entropy(pending) if pending else None
+        prev = self._finish_pending()
         if pics is None:
-            return self._finish(pending, futures) if pending else None
+            return prev
         fy, fu, fv = self._stack(pics)
         p = self.param
         is_idr = self.i_frame % max(p.i_keyint_max, 1) == 0
@@ -247,22 +238,29 @@ class BatchEncoder:
             self.frame_num = 0
         qp = self.slot_qp(slice_type)
         bw = BitWriter()
+        # the slice header is shared by all streams (lockstep GOP)
         C.write_slice_header_common(self, bw, slice_type, qp,
                                     self.idr_pic_id if is_idr else -1)
+        hv, hl = (torch.as_tensor(a, device=self.device) for a in
+                  CD.header_elements(*bw.get_unaligned(), max_slots=32))
         qp_mb = torch.full((self.S, self.mb_h, self.mb_w), qp,
                            dtype=torch.int32, device=self.device)
         lam = torch.full_like(qp_mb, int(C.LAMBDA_TAB[qp]))
         out = C.frame_step(self.frame_cfg(qp), slice_type == P.SLICE_TYPE_P,
-                           fy, fu, fv, self.refs, qp_mb, lam, qp, self.clock)
+                           fy, fu, fv, self.refs, qp_mb, lam, qp, hv, hl,
+                           self.clock)
         self.refs = out["planes"]
         self.last_recon = out["recon"]
-        prev = self._finish(pending, futures) if pending else None
-        self._pending = {"syn": out["syn"], "stats": out["stats"],
+        if self.keep_syntax:
+            self.last_slot = dict(out, slice_type=slice_type, qp=qp,
+                                  header=bw.get_unaligned())
+        self._pending = {"out": {k: out[k] for k in ("payload", "bits", "ov",
+                                                     "n_skip", "rows",
+                                                     "stats")},
                          "slice_type": slice_type, "is_idr": is_idr,
-                         "first": self.i_frame == 0, "qp": qp,
-                         "header": bw.get_unaligned(),
+                         "first": self.i_frame == 0,
                          "times": {k: self.clock.times.pop(k, 0.0)
-                                   for k in ("encode", "deblock",
+                                   for k in ("encode", "cavlc", "deblock",
                                              "ref_planes")}}
         if is_idr:
             self.idr_pic_id = (self.idr_pic_id + 1) % 65536

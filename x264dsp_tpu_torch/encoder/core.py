@@ -3,12 +3,12 @@ x264dsp_tpu/encoder/core.py.
 
 ``frame_step`` does what ``_fused_frame_fn(batched=True)`` (core.py:133)
 does for S lockstep streams, with an explicit leading stream axis on
-every tensor: the I or P frame encode, the decoded-QP scan, the in-loop
-deblock, the half-pel reference planes and the stats vector. The CAVLC
-payload is not packed on the device here: the step hands back the
-syntax tensors that the C++ writers (entropy/native.py) read, and
-BatchEncoder pulls them to the host. The TPU worker-fault split of the
-reference pyramid (core.py:258-265) has no counterpart.
+every tensor: the I or P frame encode, the device CAVLC slice payload
+(entropy/cavlc_device.py), the decoded-QP scan, the in-loop deblock on
+the chosen route, the half-pel reference planes and the stats vector.
+BatchEncoder pulls the payload bytes, never the syntax. The TPU
+worker-fault split of the reference pyramid (core.py:258-265) has no
+counterpart.
 
 The host helpers below are JAX-free copies of their namesakes in
 x264dsp_tpu/encoder/core.py (which imports JAX), each marked with its
@@ -24,8 +24,7 @@ import numpy as np
 import torch
 
 from .. import params as P
-from ..entropy import cavlc
-from ..entropy.bitstream import BitWriter
+from ..entropy import cavlc_device as CD
 from ..ops import deblock as DB
 from ..ops import mc as MC
 from ..ops.tables import CHROMA_QP_TABLE
@@ -52,7 +51,8 @@ LAMBDA_TAB = np.array([
 # budget of the JAX BatchEncoder, whose overshoot it reports as an error
 DEV_PAYLOAD_BYTES_PER_MB = 512
 
-# syntax keys the C++ CAVLC writers read (native.write_slice_p/_i)
+# syntax keys the C++ CAVLC writers read (native.write_slice_p/_i); the
+# device packer reads the same tensors on the device
 SYN_P = ("mv", "cbp_luma", "cbp_chroma", "luma_levels", "chroma_dc_levels",
          "chroma_ac_levels", "partition", "mv8", "ref")
 SYN_I = ("mb_type", "i16_mode", "i4_modes", "chroma_mode", "cbp_luma",
@@ -106,53 +106,6 @@ def write_slice_header_common(enc, bw, slice_type, qp, idr_pic_id):
     if deblock_on:
         bw.write_se(p.i_deblocking_filter_alphac0)
         bw.write_se(p.i_deblocking_filter_beta)
-
-
-def detect_cavlc_overflow(syn, slice_type, mb_h: int, mb_w: int):
-    """Copy of core.py:553 _detect_cavlc_overflow: per-MB CAVLC level-code
-    overflow (cavlc.c:56-60, escape level_code >= 1<<12 below High
-    profile). A magnitude screen, then the exact writer on suspect MBs.
-    syn: one stream's host syntax. Returns an (mb_h, mb_w) bool grid."""
-    flagged = np.zeros((mb_h, mb_w), bool)
-    suspects = np.abs(syn["luma_levels"]).max(axis=(-1, -2)) >= 256
-    suspects |= np.abs(syn["chroma_dc_levels"]).max(axis=(-1, -2)) >= 256
-    suspects |= np.abs(syn["chroma_ac_levels"]).max(axis=(-1, -2, -3)) >= 256
-    if "luma_dc_levels" in syn:
-        suspects |= np.abs(syn["luma_dc_levels"]).max(axis=-1) >= 256
-    if not suspects.any():
-        return flagged
-
-    def block_ov(levels, chroma_dc=False):
-        _, ov = cavlc.write_block_residual(BitWriter(), levels, 0,
-                                           chroma_dc=chroma_dc)
-        return ov
-
-    is_i = slice_type == P.SLICE_TYPE_I
-    for mby, mbx in zip(*np.nonzero(suspects)):
-        ov = False
-        cbp_luma = int(syn["cbp_luma"][mby, mbx])
-        is_i16 = is_i and syn["mb_type"][mby, mbx] == 0
-        for i in range(16):
-            lv = syn["luma_levels"][mby, mbx, i]
-            if is_i16:
-                if cbp_luma:
-                    ov |= block_ov(lv[1:])
-            elif cbp_luma & (1 << (i >> 2)):
-                ov |= block_ov(lv)
-        if is_i16:
-            ov |= block_ov(syn["luma_dc_levels"][mby, mbx])
-        cbp_chroma = int(syn["cbp_chroma"][mby, mbx])
-        if cbp_chroma:
-            for ch in range(2):
-                ov |= block_ov(syn["chroma_dc_levels"][mby, mbx, ch],
-                               chroma_dc=True)
-            if cbp_chroma == 2:
-                for ch in range(2):
-                    for i in range(4):
-                        ov |= block_ov(
-                            syn["chroma_ac_levels"][mby, mbx, ch, i, 1:])
-        flagged[mby, mbx] = ov
-    return flagged
 
 
 class StageClock:
@@ -211,16 +164,20 @@ def eff_qp_scan(syn, qp_mb, slice_qp, is_i: bool):
 
 
 def frame_step(cfg: dict, is_p: bool, fy, fu, fv, refs, qp_mb, lam_mb,
-               slice_qp: int, clock: StageClock):
+               slice_qp: int, hv, hl, clock: StageClock):
     """One batched frame slot. cfg: the static settings (mb_w, mb_h,
     me_range, mv_range, me_method, subme, partitions, dct_decimate,
-    fast_pskip, use_satd, i4x4, deblock_on, alpha_off, beta_off, cqpo). fy/fu/fv (S, H, W)
-    frames on the device, refs (ref4, refu, refv) for a P slot, qp_mb /
-    lam_mb (S, mb_h, mb_w) int32. Returns a dict: syn (device syntax),
-    recon (deblocked uint8 planes), planes (next reference planes),
-    stats (S, n) int32."""
+    fast_pskip, use_satd, i4x4, deblock_on, deblock_route, alpha_off,
+    beta_off, cqpo, cap_bytes). fy/fu/fv (S, H, W) frames on the device,
+    refs (ref4, refu, refv) for a P slot, qp_mb / lam_mb (S, mb_h, mb_w)
+    int32, hv / hl the slice header as packer slots
+    (cavlc_device.header_elements). Returns a dict like the JAX fused
+    frame function's: payload (S, cap_bytes) uint8, bits, ov, n_skip (S,),
+    rows (S, mb_h), stats (S, n) int32, planes (next reference planes),
+    recon (deblocked uint8 planes), and syn (the device syntax)."""
     mb_w, mb_h = cfg["mb_w"], cfg["mb_h"]
     dev = fy.device
+    S = fy.shape[0]
     cqp = torch.as_tensor(CHROMA_QP_TABLE, device=dev)
     qpc_mb = cqp[(qp_mb + cfg["cqpo"]).clamp(0, 51).long()].to(_I32)
     clock.start()
@@ -231,14 +188,22 @@ def frame_step(cfg: dict, is_p: bool, fy, fu, fv, refs, qp_mb, lam_mb,
             cfg["me_range"], cfg["mv_range"], cfg["dct_decimate"],
             fast_pskip=cfg["fast_pskip"], me_method=cfg["me_method"],
             subme=cfg["subme"], partitions=cfg["partitions"])
-        stats = torch.cat([_hist(syn["partition"], 4),
+        clock.mark("encode")
+        payload, bits, n_skip, ov, rows = CD.cavlc_p_payload(
+            {k: syn[k] for k in SYN_P if k != "mv"}, qp_mb, slice_qp, 1,
+            mb_h, mb_w, hv, hl, cfg["cap_bytes"], with_rows=True)
+        stats = torch.cat([n_skip[:, None], _hist(syn["partition"], 4),
                            _hist(syn["ref"], P.REF_MAX)], 1)
     else:
         syn = intra_frame.encode_i_frame(fy, fu, fv, qp_mb, qpc_mb, lam_mb,
                                          mb_w, mb_h, cfg["use_satd"],
                                          cfg["i4x4"])
+        clock.mark("encode")
+        payload, bits, ov, rows = CD.cavlc_i_payload(
+            {k: syn[k] for k in SYN_I}, qp_mb, slice_qp, mb_h, mb_w, hv, hl,
+            cfg["cap_bytes"], with_rows=True)
+        n_skip = torch.zeros(S, dtype=_I32, device=dev)
         is_i4 = syn["mb_type"] == 1
-        S = fy.shape[0]
         stats = torch.cat([
             is_i4.reshape(S, -1).sum(1, dtype=_I32)[:, None],
             _hist(torch.where(is_i4, 7, syn["i16_mode"]), 7),
@@ -248,10 +213,9 @@ def frame_step(cfg: dict, is_p: bool, fy, fu, fv, refs, qp_mb, lam_mb,
                          (syn["cbp_chroma"] >= 1).reshape(S, -1).sum(1),
                          (syn["cbp_chroma"] == 2).reshape(S, -1).sum(1)],
                         1).to(_I32)], 1)
-    clock.mark("encode")
+    clock.mark("cavlc")
     dy, du, dv = syn["recon_y"], syn["recon_u"], syn["recon_v"]
     if cfg["deblock_on"]:
-        S = fy.shape[0]
         if is_p:
             bs, feo = syn["bs"], syn["feo"]
             intra_mb = torch.zeros((S, mb_h, mb_w), dtype=_I32, device=dev)
@@ -265,19 +229,23 @@ def frame_step(cfg: dict, is_p: bool, fy, fu, fv, refs, qp_mb, lam_mb,
         dy, du, dv = DB.deblock_frame(
             dy.contiguous(), du.contiguous(), dv.contiguous(),
             bs.contiguous(), intra_mb, feo.contiguous(), eff, eff_c,
-            cfg["alpha_off"], cfg["beta_off"], mb_w, mb_h)
+            cfg["alpha_off"], cfg["beta_off"], mb_w, mb_h,
+            route=cfg.get("deblock_route"))
     clock.mark("deblock")
     planes = (MC.make_ref_planes(dy).contiguous(),
               MC.pad_chroma(du).contiguous(), MC.pad_chroma(dv).contiguous())
     clock.mark("ref_planes")
-    return dict(syn=syn, stats=stats, planes=planes,
+    return dict(payload=payload, bits=bits, ov=ov, n_skip=n_skip, rows=rows,
+                stats=stats, planes=planes, syn=syn,
                 recon=(dy.to(torch.uint8), du.to(torch.uint8),
                        dv.to(torch.uint8)))
 
 
 def pull_syntax(syn, keys, S: int):
     """Device syntax -> per-stream host dicts of int16 arrays, in ONE
-    device-to-host copy (the C++ writers read int16)."""
+    device-to-host copy (the C++ writers read int16). Not on the
+    BatchEncoder's path: the checks that hold the device packer to the
+    C++ writers use it."""
     parts = [syn[k].to(torch.int16).reshape(S, -1) for k in keys]
     flat = torch.cat(parts, 1).cpu().numpy()
     out = [{} for _ in range(S)]

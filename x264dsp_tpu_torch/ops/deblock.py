@@ -3,23 +3,39 @@
 ``deblock_frame`` filters a batch of S frames in raster MB order:
 alpha/beta/tc0 spec tables (deblock.c:26-78), the normal and intra edge
 filters (:80-295), per-MB decoded QP with the (qp + qp_nb + 1) >> 1
-average on MB edges (:341-430). On a CUDA tensor it launches kernel K3
-(``csrc/deblock.cu``); on a CPU tensor it runs ``deblock_frame_plain``,
-the same wavefront written in plain PyTorch: one step per diagonal
-x + 2y = d, each step gathering the 20x20 luma / 12x12 chroma region of
-every MB on the diagonal (all streams at once), filtering the 4+4 luma
-and 2+2 chroma edges in deblock.c order, and scattering the regions
-back. Regions on one diagonal are disjoint, so the scatter writes
+average on MB edges (:341-430). It has three routes that compute the
+same function, the counterpart of the JAX ``use_pallas`` argument:
+
+- ``route=None`` (default): kernel K3 (``csrc/deblock.cu``) reads the raw
+  per-MB grids and walks the whole wavefront in one launch;
+- ``route="wave"``: ``wave_lanes`` precomputes the per-diagonal per-slot
+  filter lanes, then kernels K5a (``deblock_wave_luma``) and K5b
+  (``deblock_wave_chroma``) walk the wavefront from those lanes, one
+  launch each;
+- ``route="region"``: per diagonal x + 2y = d, an indexed gather of the
+  20x20 luma / 12x12 chroma regions of every MB on it (all streams at
+  once), kernel K6 (``filter_regions``) on the gathered regions with that
+  diagonal's lanes, and an indexed scatter back; one launch per diagonal.
+
+On a CPU tensor each wrapper runs its plain PyTorch version instead
+(``deblock_frame_plain``, ``deblock_wave_luma_plain``,
+``deblock_wave_chroma_plain``, ``filter_regions_plain``): one step per
+diagonal, each filtering the 4+4 luma and 2+2 chroma edges in deblock.c
+order. Regions on one diagonal are disjoint, so a scatter writes
 disjoint indices.
 
-Kernel K3 replaces x264dsp_tpu/ops/pallas/deblock_skew.py::
-deblock_skew_call. It is bound by the latency of the 254 dependent
-diagonal steps at 1080p, so it runs one block per (stream, plane group)
-that walks every diagonal, with the raw per-MB grids as parameters in
-place of the TPU's skewed lane layout (see the source note in the .cu).
+K3 replaces x264dsp_tpu/ops/pallas/deblock_skew.py::deblock_skew_call,
+K5a/K5b replace ops/pallas/deblock_wave.py::deblock_wave_luma/_chroma and
+K6 replaces ops/pallas/deblock_filter.py::filter_regions. K3 and K5 are
+bound by the latency of the 254 dependent diagonal steps at 1080p, so
+each runs one block per stream (and plane group) that walks every
+diagonal in global memory (see the source notes in the .cu); none keeps
+the TPU's skewed lane layout, superwindows or one-hot matmuls.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -57,7 +73,10 @@ for _qp, _v in _TC0_ROWS:
 _KERNEL_TAB = np.concatenate([ALPHA_TABLE, BETA_TABLE, TC0_TABLE.ravel()])
 
 PAD_DB = 8
-launches = 0            # K3 launches (chip_smoke.py checks the main path)
+KB = 16                 # filter_regions takes a multiple of KB regions
+# CUDA launches of K3 / K5a / K5b / K6 (chip_smoke.py checks the paths)
+launches = {"deblock": 0, "deblock_wave_luma": 0, "deblock_wave_chroma": 0,
+            "filter_regions": 0}
 
 
 def diag_schedule(mb_w: int, mb_h: int):
@@ -69,6 +88,28 @@ def diag_schedule(mb_w: int, mb_h: int):
         ys = [y for y in range(mb_h) if 0 <= d - 2 * y < mb_w]
         out.append((ys, [d - 2 * y for y in ys]))
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def diag_slots(mb_w: int, mb_h: int):
+    """The schedule as (D, K) int64 arrays (ys, xs): slot k of diagonal d
+    is MB (ys[d, k], xs[d, k]); K is the longest diagonal and unused
+    slots hold -1 (they trail the used ones)."""
+    sched = diag_schedule(mb_w, mb_h)
+    K = max(len(ys) for ys, _ in sched)
+    ys = np.full((len(sched), K), -1, np.int64)
+    xs = np.full((len(sched), K), -1, np.int64)
+    for d, (ys_l, xs_l) in enumerate(sched):
+        ys[d, :len(ys_l)] = ys_l
+        xs[d, :len(xs_l)] = xs_l
+    return ys, xs
+
+
+def _device_slots(mb_w: int, mb_h: int, dev):
+    """diag_slots as device tensors, and each diagonal's slot count."""
+    ys, xs = diag_slots(mb_w, mb_h)
+    return (device_table(ys, dev, torch.long),
+            device_table(xs, dev, torch.long), (ys >= 0).sum(1).tolist())
 
 
 def compute_strengths(nnz4, mv4, ref4, intra_mb):
@@ -155,58 +196,69 @@ def _filter_chroma(p1, p0, q0, q1, alpha, beta, tc, intra):
     return torch.where(intra, p0i, p0n), torch.where(intra, q0i, q0n)
 
 
-def _luma_edge(reg, dir_, e, bs, use_intra, enabled, alpha, beta, ia, tc0t):
-    """Filter luma edge e of direction dir_ in the (S, K, 20, 20) regions
-    (MB at [4:20, 4:20]) in place. bs (S, K, 4) groups; per-(S, K)
-    scalars otherwise."""
+def _luma_edge_lanes(reg, dir_, e, tc0, use_intra, enabled, alpha, beta):
+    """Filter luma edge e of direction dir_ in the (..., 20, 20) regions
+    (MB at [4:20, 4:20]) in place. tc0 (..., 16) per pixel line;
+    use_intra, enabled (bool), alpha, beta (..., 1) per region."""
     c = 4 + 4 * e
     if dir_ == 0:
-        line = [reg[:, :, 4:20, c - 4 + i] for i in range(8)]
+        line = [reg[..., 4:20, c - 4 + i] for i in range(8)]
     else:
-        line = [reg[:, :, c - 4 + i, 4:20] for i in range(8)]
+        line = [reg[..., c - 4 + i, 4:20] for i in range(8)]
     p3, p2, p1, p0, q0, q1, q2, q3 = line
-    tc0 = tc0t[ia[..., None], bs.clamp(0, 3)].repeat_interleave(4, -1)
-    a, b = alpha[..., None], beta[..., None]
-    p1n, p0n, q0n, q1n = _filter_normal_luma(p2, p1, p0, q0, q1, q2, a, b,
-                                             tc0)
-    ui = use_intra[..., None]
-    intra = _filter_intra_luma(p3, p2, p1, p0, q0, q1, q2, q3, a, b)
+    p1n, p0n, q0n, q1n = _filter_normal_luma(p2, p1, p0, q0, q1, q2, alpha,
+                                             beta, tc0)
+    intra = _filter_intra_luma(p3, p2, p1, p0, q0, q1, q2, q3, alpha, beta)
+    ui = use_intra
     new = [torch.where(ui, intra[0], p2), torch.where(ui, intra[1], p1n),
            torch.where(ui, intra[2], p0n), torch.where(ui, intra[3], q0n),
            torch.where(ui, intra[4], q1n), torch.where(ui, intra[5], q2)]
-    en = enabled[..., None]
-    new = [torch.where(en, nv, ov) for nv, ov in zip(new, line[1:7])]
+    new = [torch.where(enabled, nv, ov) for nv, ov in zip(new, line[1:7])]
     for i, nv in enumerate(new):
         if dir_ == 0:
-            reg[:, :, 4:20, c - 3 + i] = nv
+            reg[..., 4:20, c - 3 + i] = nv
         else:
-            reg[:, :, c - 3 + i, 4:20] = nv
+            reg[..., c - 3 + i, 4:20] = nv
 
 
-def _chroma_edge(reg, dir_, e, bs, use_intra, enabled, alpha, beta, ia,
-                 tc0t):
-    """Chroma edge e (0 = MB edge, 1 = internal) of the (S, K, 2, 12, 12)
-    u/v regions (MB at [4:12, 4:12]) in place; bs (S, K, 4)."""
+def _chroma_edge_lanes(reg, dir_, e, tc, use_intra, enabled, alpha, beta):
+    """Chroma edge e (0 = MB edge, 1 = internal) of the (..., 12, 12)
+    regions (MB at [4:12, 4:12]) in place. tc (..., 8) per pixel line,
+    already +1; use_intra, enabled (bool), alpha, beta (..., 1)."""
     c = 4 + 4 * e
     if dir_ == 0:
         line = [reg[..., 4:12, c - 2 + i] for i in range(4)]
     else:
         line = [reg[..., c - 2 + i, 4:12] for i in range(4)]
     p1, p0, q0, q1 = line
-    tc = tc0t[ia[..., None], bs.clamp(0, 3)].repeat_interleave(2, -1) + 1
-    tc = tc[:, :, None]
-    a, b = alpha[:, :, None, None], beta[:, :, None, None]
-    p0o, q0o = _filter_chroma(p1, p0, q0, q1, a, b, tc,
-                              use_intra[:, :, None, None])
-    en = enabled[:, :, None, None]
-    p0o = torch.where(en, p0o, p0)
-    q0o = torch.where(en, q0o, q0)
+    p0o, q0o = _filter_chroma(p1, p0, q0, q1, alpha, beta, tc, use_intra)
+    p0o = torch.where(enabled, p0o, p0)
+    q0o = torch.where(enabled, q0o, q0)
     if dir_ == 0:
         reg[..., 4:12, c - 1] = p0o
         reg[..., 4:12, c] = q0o
     else:
         reg[..., c - 1, 4:12] = p0o
         reg[..., c, 4:12] = q0o
+
+
+def _luma_edge(reg, dir_, e, bs, use_intra, enabled, alpha, beta, ia, tc0t):
+    """Luma edge e of direction dir_ of the (S, K, 20, 20) regions in
+    place, from raw grids: bs (S, K, 4) groups; per-(S, K) scalars
+    otherwise."""
+    tc0 = tc0t[ia[..., None], bs.clamp(0, 3)].repeat_interleave(4, -1)
+    _luma_edge_lanes(reg, dir_, e, tc0, use_intra[..., None],
+                     enabled[..., None], alpha[..., None], beta[..., None])
+
+
+def _chroma_edge(reg, dir_, e, bs, use_intra, enabled, alpha, beta, ia,
+                 tc0t):
+    """Chroma edge e of the (S, K, 2, 12, 12) u/v regions in place, from
+    raw grids; bs (S, K, 4)."""
+    tc = tc0t[ia[..., None], bs.clamp(0, 3)].repeat_interleave(2, -1) + 1
+    exp = (slice(None), slice(None), None, None)
+    _chroma_edge_lanes(reg, dir_, e, tc[:, :, None], use_intra[exp],
+                       enabled[exp], alpha[exp], beta[exp])
 
 
 def deblock_frame_plain(y, u, v, bs, intra_mb, first_edge_only, qp, qpc,
@@ -277,14 +329,20 @@ def deblock_frame_plain(y, u, v, bs, intra_mb, first_edge_only, qp, qpc,
 
 
 # ---------------------------------------------------------------------------
-# kernel wrapper
+# K3: whole-frame kernel from the raw grids
 # ---------------------------------------------------------------------------
+
+def _copy(t):
+    """A new contiguous tensor holding t (the kernels filter in place)."""
+    out = torch.empty_like(t, memory_format=torch.contiguous_format)
+    out.copy_(t)
+    return out
+
 
 def deblock_frame_cuda(y, u, v, bs, intra_mb, first_edge_only, qp, qpc,
                        alpha_off: int, beta_off: int, mb_w: int, mb_h: int):
     """Launch kernel K3 on S frames (arguments as deblock_frame_plain,
     all int32 CUDA tensors). Returns new filtered planes."""
-    global launches
     S = y.shape[0]
     H, W = 16 * mb_h, 16 * mb_w
     grid = (S, mb_h, mb_w)
@@ -295,10 +353,7 @@ def deblock_frame_cuda(y, u, v, bs, intra_mb, first_edge_only, qp, qpc,
                            (first_edge_only, grid, "first_edge_only"),
                            (qp, grid, "qp"), (qpc, grid, "qpc")):
         _build.require_cuda(t, torch.int32, shape, name)
-    oy, ou, ov = (torch.empty_like(t) for t in (y, u, v))
-    oy.copy_(y)
-    ou.copy_(u)
-    ov.copy_(v)
+    oy, ou, ov = _copy(y), _copy(u), _copy(v)
     lib = _build.lib()
     code = lib.x264t_deblock(
         oy.data_ptr(), ou.data_ptr(), ov.data_ptr(), bs.data_ptr(),
@@ -306,14 +361,343 @@ def deblock_frame_cuda(y, u, v, bs, intra_mb, first_edge_only, qp, qpc,
         qpc.data_ptr(), device_table(_KERNEL_TAB, y.device).data_ptr(), S, mb_h, mb_w,
         int(alpha_off), int(beta_off), _build.stream_ptr(y.device))
     _build.check(code, "x264t_deblock")
-    launches += 1
+    launches["deblock"] += 1
     return oy, ou, ov
 
 
+# ---------------------------------------------------------------------------
+# filter lanes (the wave and region routes)
+# ---------------------------------------------------------------------------
+
+def wave_lanes(bs, intra_mb, first_edge_only, qp, qpc, alpha_off: int,
+               beta_off: int, mb_w: int, mb_h: int):
+    """Per-diagonal per-slot filter lanes for all wavefront steps at once
+    (x264dsp_tpu/ops/deblock.py:371 _wave_lanes with a leading stream
+    axis, same layouts). Arguments as deblock_frame_plain. Returns
+    (tc0y, eny, uiy, aly, bly), (tcc, enc, uic, alc, blc) int32 with
+    D = mb_w + 2 mb_h - 2 diagonals and K slots (diag_slots):
+    tc0y (S, D, K, 128) at [dir * 64 + edge * 16 + pixel line];
+    eny, uiy, aly, bly (S, D, K, 8) at [dir * 4 + edge]: edge enabled,
+    intra filter, alpha, beta; tcc (S, D, 2K, 32) at [dir * 16 + edge * 8
+    + line], tc0 + 1 from bs edge rows 0 and 2; enc, uic, alc, blc
+    (S, D, 2K, 4) at [dir * 2 + edge]. Chroma slots interleave (u, v).
+    Unused slots have every enable 0."""
+    dev = bs.device
+    i32 = torch.int32
+    S = bs.shape[0]
+    ys, xs, _ = _device_slots(mb_w, mb_h, dev)
+    D, K = ys.shape
+    valid = ys >= 0
+    yc, xc = ys.clamp(min=0), xs.clamp(min=0)
+    xl, yt = (xc - 1).clamp(min=0), (yc - 1).clamp(min=0)
+    alpha_t = device_table(ALPHA_TABLE, dev)
+    beta_t = device_table(BETA_TABLE, dev)
+    tc0t = device_table(TC0_TABLE, dev)
+
+    bs_mb = bs[:, yc, xc].clamp(0, 3).long()           # (S, D, K, 2, 4, 4)
+    ic = intra_mb[:, yc, xc] > 0
+    il = intra_mb[:, yc, xl] > 0
+    it = intra_mb[:, yt, xc] > 0
+    feo = first_edge_only[:, yc, xc] > 0
+    has_l = ((xs > 0) & valid).to(i32)[None].expand(S, D, K)
+    has_t = ((ys > 0) & valid).to(i32)[None].expand(S, D, K)
+    internal = (~feo & valid).to(i32)
+    f0 = torch.zeros((S, D, K), dtype=i32, device=dev)
+
+    def edge_idx(grid, n_edges):
+        cur = grid[:, yc, xc]
+        qpe = cur[..., None, None].repeat(1, 1, 1, 2, n_edges)
+        qpe[..., 0, 0] = (cur + grid[:, yc, xl] + 1) >> 1
+        qpe[..., 1, 0] = (cur + grid[:, yt, xc] + 1) >> 1
+        return ((qpe + alpha_off).clamp(0, 51).long(),
+                (qpe + beta_off).clamp(0, 51).long())
+
+    ia_l, ib_l = edge_idx(qp, 4)                        # (S, D, K, 2, 4)
+    ia_c, ib_c = edge_idx(qpc, 2)
+    tc0y = tc0t[ia_l[..., None], bs_mb].repeat_interleave(4, -1) \
+        .reshape(S, D, K, 128)
+    tcc = (tc0t[ia_c[..., None], bs_mb[..., ::2, :]] + 1) \
+        .repeat_interleave(2, -1).reshape(S, D, K, 32)
+    ui_l = (ic | il).to(i32)
+    ui_t = (ic | it).to(i32)
+    eny = torch.stack([has_l, internal, internal, internal,
+                       has_t, internal, internal, internal], -1)
+    uiy = torch.stack([ui_l, f0, f0, f0, ui_t, f0, f0, f0], -1)
+    enc = torch.stack([has_l, internal, has_t, internal], -1)
+    uic = torch.stack([ui_l, f0, ui_t, f0], -1)
+    luma = (tc0y, eny, uiy, alpha_t[ia_l].reshape(S, D, K, 8),
+            beta_t[ib_l].reshape(S, D, K, 8))
+    chroma = (tcc, enc, uic, alpha_t[ia_c].reshape(S, D, K, 4),
+              beta_t[ib_c].reshape(S, D, K, 4))
+    return (tuple(t.contiguous() for t in luma),
+            tuple(t.repeat_interleave(2, 2).contiguous() for t in chroma))
+
+
+# ---------------------------------------------------------------------------
+# K6: the 12-edge chain on gathered regions
+# ---------------------------------------------------------------------------
+
+def _luma_chain(reg, tc0y, eny, uiy, aly, bly):
+    """The 8 luma edges (4 vertical, then 4 horizontal) of the
+    (..., 20, 20) regions in place, lanes (..., 128) / (..., 8)."""
+    for d in range(2):
+        for e in range(4):
+            k = d * 4 + e
+            _luma_edge_lanes(reg, d, e, tc0y[..., 16 * k:16 * k + 16],
+                             uiy[..., k:k + 1] != 0, eny[..., k:k + 1] != 0,
+                             aly[..., k:k + 1], bly[..., k:k + 1])
+
+
+def _chroma_chain(reg, tcc, enc, uic, alc, blc):
+    """The 4 chroma edges of the (..., 12, 12) regions in place, lanes
+    (..., 32) / (..., 4)."""
+    for d in range(2):
+        for e in range(2):
+            k = d * 2 + e
+            _chroma_edge_lanes(reg, d, e, tcc[..., 8 * k:8 * k + 8],
+                               uic[..., k:k + 1] != 0, enc[..., k:k + 1] != 0,
+                               alc[..., k:k + 1], blc[..., k:k + 1])
+
+
+def filter_regions_plain(regy, regc, tc0y, tcc, eny, uiy, enc, uic,
+                         aly, bly, alc, blc):
+    """Plain version of filter_regions: the 12-edge chain (4 + 4 luma,
+    2 + 2 chroma, vertical before horizontal) on gathered regions. regy
+    (K, 20, 20), regc (2K, 12, 12) with chroma rows interleaved per MB
+    (u then v); lanes as wave_lanes lays them out, without the stream
+    and diagonal axes. Returns new (regy, regc)."""
+    oy = regy.to(torch.int32).clone()
+    oc = regc.to(torch.int32).clone()
+    _luma_chain(oy, tc0y, eny, uiy, aly, bly)
+    _chroma_chain(oc, tcc, enc, uic, alc, blc)
+    return oy, oc
+
+
+def _region_shapes(K: int):
+    return (("regy", (K, 20, 20)), ("regc", (2 * K, 12, 12)),
+            ("tc0y", (K, 128)), ("tcc", (2 * K, 32)), ("eny", (K, 8)),
+            ("uiy", (K, 8)), ("enc", (2 * K, 4)), ("uic", (2 * K, 4)),
+            ("aly", (K, 8)), ("bly", (K, 8)), ("alc", (2 * K, 4)),
+            ("blc", (2 * K, 4)))
+
+
+def filter_regions_cuda(regy, regc, tc0y, tcc, eny, uiy, enc, uic,
+                        aly, bly, alc, blc):
+    """Launch kernel K6 (arguments as filter_regions_plain, int32 CUDA
+    tensors, K a multiple of KB). Returns new (regy, regc)."""
+    K = regy.shape[0]
+    if K % KB:
+        raise ValueError(f"filter_regions: K = {K} is no multiple of {KB}")
+    args = (regy, regc, tc0y, tcc, eny, uiy, enc, uic, aly, bly, alc, blc)
+    for t, (name, shape) in zip(args, _region_shapes(K)):
+        _build.require_cuda(t, torch.int32, shape, name)
+    oy, oc = torch.empty_like(regy), torch.empty_like(regc)
+    code = _build.lib().x264t_filter_regions(
+        oy.data_ptr(), oc.data_ptr(), *(t.data_ptr() for t in args), K,
+        _build.stream_ptr(regy.device))
+    _build.check(code, "x264t_filter_regions")
+    launches["filter_regions"] += 1
+    return oy, oc
+
+
+def filter_regions(regy, regc, tc0y, tcc, eny, uiy, enc, uic, aly, bly,
+                   alc, blc):
+    """The 12-edge chain on gathered regions (see filter_regions_plain):
+    kernel K6 on CUDA tensors, the plain version on CPU tensors."""
+    fn = filter_regions_cuda if regy.is_cuda else filter_regions_plain
+    return fn(regy, regc, tc0y, tcc, eny, uiy, enc, uic, aly, bly, alc, blc)
+
+
+# ---------------------------------------------------------------------------
+# K5a / K5b: whole-frame wavefront from precomputed lanes
+# ---------------------------------------------------------------------------
+
+def region_index(ys, xs, mb: int, size: int, dev):
+    """Row and column indices (k, size, 1) / (k, 1, size) of the regions
+    of MBs (ys, xs) in a plane padded by 4."""
+    ar = torch.arange(size, device=dev)
+    return ((ys[:, None] * mb + ar)[:, :, None],
+            (xs[:, None] * mb + ar)[:, None, :])
+
+
+def deblock_wave_luma_plain(y, tc0y, eny, uiy, aly, bly, mb_w: int,
+                            mb_h: int):
+    """Plain version of deblock_wave_luma: for each diagonal in order,
+    gather its slots' 20x20 regions, filter the 8 luma edges with that
+    diagonal's lanes, scatter back."""
+    dev = y.device
+    yp = torch.nn.functional.pad(y.to(torch.int32), (4, 4, 4, 4))
+    ys_all, xs_all, counts = _device_slots(mb_w, mb_h, dev)
+    for d, k in enumerate(counts):
+        ry, rx = region_index(ys_all[d, :k], xs_all[d, :k], 16, 20, dev)
+        reg = yp[:, ry, rx]                              # (S, k, 20, 20)
+        _luma_chain(reg, *(t[:, d, :k] for t in (tc0y, eny, uiy, aly, bly)))
+        yp[:, ry, rx] = reg
+    return yp[:, 4:-4, 4:-4].contiguous()
+
+
+def deblock_wave_chroma_plain(u, v, tcc, enc, uic, alc, blc, mb_w: int,
+                              mb_h: int):
+    """Plain version of deblock_wave_chroma: as the luma one with 12x12
+    regions of u and v and 4 edges; lane slots interleave (u, v)."""
+    dev = u.device
+    cp = torch.nn.functional.pad(
+        torch.stack([u.to(torch.int32), v.to(torch.int32)], 1), (4, 4, 4, 4))
+    ys_all, xs_all, counts = _device_slots(mb_w, mb_h, dev)
+    S = u.shape[0]
+    for d, k in enumerate(counts):
+        ry, rx = region_index(ys_all[d, :k], xs_all[d, :k], 8, 12, dev)
+        # (S, 2, k, 12, 12) -> (S, 2k, 12, 12), (u, v) interleaved per slot
+        reg = cp[:, :, ry, rx].transpose(1, 2).reshape(S, 2 * k, 12, 12)
+        _chroma_chain(reg, *(t[:, d, :2 * k]
+                             for t in (tcc, enc, uic, alc, blc)))
+        cp[:, :, ry, rx] = reg.reshape(S, k, 2, 12, 12).transpose(1, 2)
+    return (cp[:, 0, 4:-4, 4:-4].contiguous(),
+            cp[:, 1, 4:-4, 4:-4].contiguous())
+
+
+def _require_lanes(lanes, names, S, D, K, widths):
+    for t, name, w in zip(lanes, names, widths):
+        _build.require_cuda(t, torch.int32, (S, D, K, w), name)
+
+
+def deblock_wave_luma_cuda(y, tc0y, eny, uiy, aly, bly, mb_w: int,
+                           mb_h: int):
+    """Launch kernel K5a (arguments as deblock_wave_luma_plain, int32
+    CUDA tensors). Returns new filtered planes."""
+    S, D, K = eny.shape[:3]
+    _build.require_cuda(y, torch.int32, (S, 16 * mb_h, 16 * mb_w), "y")
+    if D != mb_w + 2 * mb_h - 2:
+        raise ValueError(f"eny: expected {mb_w + 2 * mb_h - 2} diagonals")
+    lanes = (tc0y, eny, uiy, aly, bly)
+    _require_lanes(lanes, ("tc0y", "eny", "uiy", "aly", "bly"), S, D, K,
+                   (128, 8, 8, 8, 8))
+    oy = _copy(y)
+    code = _build.lib().x264t_deblock_wave_luma(
+        oy.data_ptr(), *(t.data_ptr() for t in lanes), S, mb_h, mb_w, K,
+        _build.stream_ptr(y.device))
+    _build.check(code, "x264t_deblock_wave_luma")
+    launches["deblock_wave_luma"] += 1
+    return oy
+
+
+def deblock_wave_chroma_cuda(u, v, tcc, enc, uic, alc, blc, mb_w: int,
+                             mb_h: int):
+    """Launch kernel K5b (arguments as deblock_wave_chroma_plain, int32
+    CUDA tensors). Returns new filtered (u, v)."""
+    S, D, K2 = enc.shape[:3]
+    for t, name in ((u, "u"), (v, "v")):
+        _build.require_cuda(t, torch.int32, (S, 8 * mb_h, 8 * mb_w), name)
+    if D != mb_w + 2 * mb_h - 2 or K2 % 2:
+        raise ValueError(f"enc: expected {mb_w + 2 * mb_h - 2} diagonals "
+                         "and (u, v) slot pairs")
+    lanes = (tcc, enc, uic, alc, blc)
+    _require_lanes(lanes, ("tcc", "enc", "uic", "alc", "blc"), S, D, K2,
+                   (32, 4, 4, 4, 4))
+    ou, ov = _copy(u), _copy(v)
+    code = _build.lib().x264t_deblock_wave_chroma(
+        ou.data_ptr(), ov.data_ptr(), *(t.data_ptr() for t in lanes), S,
+        mb_h, mb_w, K2 // 2, _build.stream_ptr(u.device))
+    _build.check(code, "x264t_deblock_wave_chroma")
+    launches["deblock_wave_chroma"] += 1
+    return ou, ov
+
+
+def deblock_wave_luma(y, tc0y, eny, uiy, aly, bly, mb_w: int, mb_h: int):
+    """Whole-frame luma deblock of S planes y (S, 16mb_h, 16mb_w) int32
+    from the precomputed lanes of wave_lanes: kernel K5a on CUDA tensors,
+    the plain version on CPU tensors."""
+    fn = deblock_wave_luma_cuda if y.is_cuda else deblock_wave_luma_plain
+    return fn(y, tc0y, eny, uiy, aly, bly, mb_w, mb_h)
+
+
+def deblock_wave_chroma(u, v, tcc, enc, uic, alc, blc, mb_w: int,
+                        mb_h: int):
+    """Whole-frame chroma deblock of u, v (S, 8mb_h, 8mb_w) int32 from
+    the precomputed lanes: kernel K5b on CUDA tensors, the plain version
+    on CPU tensors."""
+    fn = deblock_wave_chroma_cuda if u.is_cuda else deblock_wave_chroma_plain
+    return fn(u, v, tcc, enc, uic, alc, blc, mb_w, mb_h)
+
+
+# ---------------------------------------------------------------------------
+# the routes
+# ---------------------------------------------------------------------------
+
+def deblock_frame_wave(y, u, v, bs, intra_mb, first_edge_only, qp, qpc,
+                       alpha_off: int, beta_off: int, mb_w: int, mb_h: int):
+    """Route "wave" (x264dsp_tpu/ops/deblock.py:581
+    deblock_frame_wave_batched): the lanes of every diagonal, then one
+    luma and one chroma wavefront call."""
+    luma_l, chroma_l = wave_lanes(bs, intra_mb, first_edge_only, qp, qpc,
+                                  alpha_off, beta_off, mb_w, mb_h)
+    dy = deblock_wave_luma(y.to(torch.int32).contiguous(), *luma_l, mb_w,
+                           mb_h)
+    du, dv = deblock_wave_chroma(u.to(torch.int32).contiguous(),
+                                 v.to(torch.int32).contiguous(), *chroma_l,
+                                 mb_w, mb_h)
+    return dy, du, dv
+
+
+def _pad_kb(t, n: int):
+    """Pad axis 0 with n zero rows (zero regions, zero enables)."""
+    if not n:
+        return t.contiguous()
+    return torch.cat([t, t.new_zeros((n,) + tuple(t.shape[1:]))])
+
+
+def deblock_frame_region(y, u, v, bs, intra_mb, first_edge_only, qp, qpc,
+                         alpha_off: int, beta_off: int, mb_w: int,
+                         mb_h: int):
+    """Route "region" (the filter_regions path of x264dsp_tpu/ops/
+    deblock.py:649-787): per diagonal, an indexed gather of the regions
+    of all streams, one filter_regions call on them (padded to a multiple
+    of KB with zero regions and zero enables) with that diagonal's slice
+    of the lanes, and an indexed scatter."""
+    dev = y.device
+    S = y.shape[0]
+    luma_l, chroma_l = wave_lanes(bs, intra_mb, first_edge_only, qp, qpc,
+                                  alpha_off, beta_off, mb_w, mb_h)
+    yp = torch.nn.functional.pad(y.to(torch.int32), (4, 4, 4, 4))
+    cp = torch.nn.functional.pad(
+        torch.stack([u.to(torch.int32), v.to(torch.int32)], 1), (4, 4, 4, 4))
+    ys_all, xs_all, counts = _device_slots(mb_w, mb_h, dev)
+    for d, k in enumerate(counts):
+        n = S * k
+        pad = -n % KB
+        ys, xs = ys_all[d, :k], xs_all[d, :k]
+        ry, rx = region_index(ys, xs, 16, 20, dev)
+        cy, cx = region_index(ys, xs, 8, 12, dev)
+        regy = yp[:, ry, rx].reshape(n, 20, 20)
+        regc = cp[:, :, cy, cx].transpose(1, 2).reshape(2 * n, 12, 12)
+        ly = [_pad_kb(t[:, d, :k].reshape(n, -1), pad) for t in luma_l]
+        lc = [_pad_kb(t[:, d, :2 * k].reshape(2 * n, -1), 2 * pad)
+              for t in chroma_l]
+        oy, oc = filter_regions(
+            _pad_kb(regy, pad), _pad_kb(regc, 2 * pad), ly[0], lc[0], ly[1],
+            ly[2], lc[1], lc[2], ly[3], ly[4], lc[3], lc[4])
+        yp[:, ry, rx] = oy[:n].reshape(S, k, 20, 20)
+        cp[:, :, cy, cx] = oc[:2 * n].reshape(S, k, 2, 12, 12) \
+            .transpose(1, 2)
+    return (yp[:, 4:-4, 4:-4].contiguous(),
+            cp[:, 0, 4:-4, 4:-4].contiguous(),
+            cp[:, 1, 4:-4, 4:-4].contiguous())
+
+
 def deblock_frame(y, u, v, bs, intra_mb, first_edge_only, qp, qpc,
-                  alpha_off: int, beta_off: int, mb_w: int, mb_h: int):
-    """Deblock S frames (see deblock_frame_plain for the arguments):
-    kernel K3 on a CUDA tensor, the plain version on a CPU tensor."""
+                  alpha_off: int, beta_off: int, mb_w: int, mb_h: int,
+                  route: str | None = None):
+    """Deblock S frames (see deblock_frame_plain for the arguments).
+    route None: kernel K3 on a CUDA tensor, deblock_frame_plain on a CPU
+    tensor; "wave": wave_lanes, K5a and K5b; "region": one K6 call per
+    diagonal. All three return the same planes."""
+    args = (y, u, v, bs, intra_mb, first_edge_only, qp, qpc, alpha_off,
+            beta_off, mb_w, mb_h)
+    if route == "wave":
+        return deblock_frame_wave(*args)
+    if route == "region":
+        return deblock_frame_region(*args)
+    if route is not None:
+        raise ValueError(f"unknown deblock route {route!r}")
     fn = deblock_frame_cuda if y.is_cuda else deblock_frame_plain
-    return fn(y, u, v, bs, intra_mb, first_edge_only, qp, qpc, alpha_off,
-              beta_off, mb_w, mb_h)
+    return fn(*args)

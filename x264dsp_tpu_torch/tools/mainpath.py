@@ -110,3 +110,42 @@ def stacked_slot(frame, t: int, S: int):
     Returns stacked (S, H, W) y and (S, H/2, W/2) u, v."""
     fr = [frame(1.0 + t + 3 * s) for s in range(S)]
     return tuple(torch.stack([f[i] for f in fr]) for i in range(3))
+
+
+def payload_vs_writers(be):
+    """Hold the newest slot's device CAVLC payloads to the host C++
+    writers: `be` is a BatchEncoder with keep_syntax set that has just
+    encoded a slot. Pulls that slot's syntax once, writes every stream's
+    slice with native.write_slice_p / _i and compares bytes, bit counts
+    and skip counts. Returns the streams' bit counts; raises RuntimeError
+    on the first difference."""
+    from .. import params as P
+    from ..encoder import core as C
+    from ..entropy import native
+    slot = be.last_slot
+    is_p = slot["slice_type"] == P.SLICE_TYPE_P
+    host = C.pull_syntax(slot["syn"], C.SYN_P if is_p else C.SYN_I, be.S)
+    bits = slot["bits"].cpu().numpy()
+    payload = slot["payload"].cpu().numpy()
+    n_skip = slot["n_skip"].cpu().numpy()
+    if slot["ov"].any().item():
+        raise RuntimeError("the device packer raised its overflow flag")
+    qp = slot["qp"]
+    grid = np.full((be.mb_h, be.mb_w), qp, np.int16)
+    for s in range(be.S):
+        if is_p:
+            want, want_skip = native.write_slice_p(
+                slot["header"], be.mb_w, be.mb_h, qp, host[s], qp_mb=grid)
+        else:
+            want, want_skip = native.write_slice_i(
+                slot["header"], be.mb_w, be.mb_h, qp, host[s],
+                qp_mb=grid), 0
+        nbytes = (int(bits[s]) + 7) // 8
+        if (nbytes != len(want) or int(n_skip[s]) != want_skip
+                or payload[s, :nbytes].tobytes() != want
+                or payload[s, nbytes:].any()):
+            raise RuntimeError(
+                f"stream {s}: the device payload ({bits[s]} bits, "
+                f"{n_skip[s]} skips) differs from the host writer's "
+                f"({len(want)} bytes, {want_skip} skips)")
+    return [int(b) for b in bits]

@@ -12,7 +12,8 @@ the main path's synthetic clip and settings (tools/mainpath.py):
              (synchronized), then one torch.profiler run: its wall, the
              device time, the device's busy share of that wall and the
              device operations per diagonal.
-  P step     one P core.frame_step (encode, deblock, reference planes) at
+  P step     one P core.frame_step (encode, device CAVLC, deblock,
+             reference planes) at
              1920x1088 for S streams, the main path's shape, on reference
              planes made from the clip's previous frame: the unprofiled
              wall, then one profiled run as above, and each hand-written
@@ -25,8 +26,8 @@ the main path's synthetic clip and settings (tools/mainpath.py):
 Each P step also prints its stage split ("P step ... stages"): one more
 run with a device sync around each stage of encode_p_frame (the full-pel
 surfaces, the windows, the MV decision, the P-skip probe, the partition
-analysis, the residual, the strengths) and of frame_step (deblock,
-reference planes).
+analysis, the residual, the strengths) and of frame_step (the device
+CAVLC packer, deblock, reference planes).
 
 Device time is the sum of the CUDA activity the profiler records
 (kernels, copies, memsets); the step runs on one stream, so that
@@ -96,6 +97,7 @@ def stage_split(fn) -> dict:
               "partitions": [(inter_frame, "decide_partitions")],
               "residual": [(inter_frame, "encode_p_residual")],
               "strengths": [(inter_frame, "compute_strengths_p")],
+              "cavlc": [(core.CD, "cavlc_p_payload")],
               "deblock": [(core.DB, "deblock_frame")],
               "ref planes": [(mc, "make_ref_planes"), (mc, "pad_chroma")]}
     ms = dict.fromkeys(stages, 0.0)
@@ -127,6 +129,7 @@ def p_step(label, be, frame, S, dev, grid):
     """Measure one P frame_step of `be`'s settings on slots 0 -> 1 of
     `frame` (the P step lines of the module docstring)."""
     from x264dsp_tpu_torch.encoder import core as C
+    from x264dsp_tpu_torch.entropy.bitstream import BitWriter
     from x264dsp_tpu_torch.ops import mc as MC
     from .mainpath import stacked_slot
     import x264dsp_tpu_torch as xtt
@@ -140,9 +143,13 @@ def p_step(label, be, frame, S, dev, grid):
     qp_mb = grid(qp, mb_w, mb_h)
     lam = grid(C.LAMBDA_TAB[qp], mb_w, mb_h)
     clock = C.StageClock(dev, False)
+    bw = BitWriter()
+    C.write_slice_header_common(be, bw, xtt.SLICE_TYPE_P, qp, -1)
+    hv, hl = (torch.as_tensor(a, device=dev) for a in
+              C.CD.header_elements(*bw.get_unaligned(), max_slots=32))
 
     def run_p():
-        C.frame_step(cfg, True, *cur, refs, qp_mb, lam, qp, clock)
+        C.frame_step(cfg, True, *cur, refs, qp_mb, lam, qp, hv, hl, clock)
     run_p()                                        # warm-up
     t = wall(run_p)
     print(f"{label} {W}x{H} S={S} QP {qp}: unprofiled {t * 1e3:.2f} ms")
