@@ -9,8 +9,9 @@ Phases (any failure exits non-zero):
      (R = 16, S = 8; K6 at one full diagonal of all streams, 480
      regions), exact equality, with CUDA-event times, the least time the
      card could take for the same work (bound_ms) and, where one PyTorch
-     call computes the same function, that call's time (library_ms); the
-     wave and region deblock routes against K3 on the same frame;
+     call computes the same function, that call's time (library_ms); K3
+     also in us per critical-path MB step (254 at 1080p); the wave and
+     region deblock routes against K3 on the same frame;
   3. the BatchEncoder on the GPU against the same on the CPU (both pack
      CAVLC with the device packer): the main path on a 64x48 clip and
      faster-1ref (HEX, subme 4, partitions) on a 64x64 split-motion clip
@@ -278,10 +279,14 @@ def kernel_checks():
         plain_ms = time_cuda(plain, preps) if preps else once_ms
         library_ms = time_cuda(lib, reps) if lib is not None else None
         bound_ms, bound_by = bound(*work)
+        # K3 is bound by its critical path: mb_w + 2 mb_h - 2 MB steps
+        per_step = (f"  {1e3 * ms / (mb_w + 2 * mb_h - 2):.3f} us per "
+                    f"critical-path step" if name.startswith("deblock[")
+                    else "")
         print(f"kernel {name:22s} max_abs_err {err}  {ms:9.3f} ms  "
               f"plain {plain_ms:10.3f} ms  library "
               + (f"{library_ms:.3f} ms" if lib is not None else "none")
-              + f"  bound {bound_ms:.3f} ms ({bound_by})")
+              + f"  bound {bound_ms:.3f} ms ({bound_by})" + per_step)
         if err != 0:
             fail(f"kernel {name} disagrees with its plain version")
         rec.append(dict(name=name, route="cuda", source=src,

@@ -105,13 +105,14 @@ def test_deblock_kernel_matches_plain(cuda, intra):
         assert torch.equal(g, w)
 
 
-def _deblock_args(c, intra):
-    t, rng, S = c["t"], c["rng"], c["S"]
-    H, W = MB_H * 16, MB_W * 16
-    grid = (S, MB_H, MB_W)
-    y = np.kron(rng.integers(0, 256, (S, MB_H * 4, MB_W * 4)),
+def _frame_args(t, rng, S, mb_w, mb_h, intra):
+    """Planes and grids of S frames with per-MB QP: P-like (some intra MBs
+    with bS 3, random bS 0..2, first-edge-only MBs) or all-intra."""
+    H, W = mb_h * 16, mb_w * 16
+    grid = (S, mb_h, mb_w)
+    y = np.kron(rng.integers(0, 256, (S, mb_h * 4, mb_w * 4)),
                 np.ones((1, 4, 4), int)) + rng.integers(-6, 7, (S, H, W))
-    u = np.kron(rng.integers(0, 256, (S, MB_H * 2, MB_W * 2)),
+    u = np.kron(rng.integers(0, 256, (S, mb_h * 2, mb_w * 2)),
                 np.ones((1, 4, 4), int))
     qp = rng.integers(16, 50, grid)
     if intra:
@@ -124,6 +125,97 @@ def _deblock_args(c, intra):
         feo = (rng.random(grid) < 0.2) & (im == 0)
     return [t(a) for a in (y.clip(0, 255), u, 255 - u, bs, im, feo, qp,
                            np.minimum(qp, 39))]
+
+
+def _deblock_args(c, intra):
+    return _frame_args(c["t"], c["rng"], c["S"], MB_W, MB_H, intra)
+
+
+def _deblock_reference(args, alpha_off, beta_off, mb_w, mb_h):
+    """deblock_frame_plain on the same tensors; for a frame one MB wide,
+    whose odd diagonals are empty and which deblock_frame_plain's loop
+    cannot index, the wave route's plain versions (the same function)."""
+    if mb_w > 1:
+        return TDB.deblock_frame_plain(*args, alpha_off, beta_off, mb_w,
+                                       mb_h)
+    luma_l, chroma_l = TDB.wave_lanes(*args[3:], alpha_off, beta_off, mb_w,
+                                      mb_h)
+    return (TDB.deblock_wave_luma_plain(args[0], *luma_l, mb_w, mb_h),
+            *TDB.deblock_wave_chroma_plain(args[1], args[2], *chroma_l,
+                                           mb_w, mb_h))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("intra", [False, True])
+@pytest.mark.parametrize("S", [1, 3])
+@pytest.mark.parametrize("mb_w, mb_h", [(1, 1), (1, 5), (5, 1), (2, 9),
+                                        (9, 2), (6, 4)])
+def test_deblock_kernel_edge_shapes(cuda, mb_w, mb_h, S, intra):
+    """K3's row pipeline on thin, short and tall frames: one row, one
+    column, fewer MBs per row than the 2-MB lag between rows."""
+    c = _case(cuda, 8, S)
+    args = _frame_args(c["t"], c["rng"], S, mb_w, mb_h, intra)
+    n0 = TDB.launches["deblock"]
+    got = TDB.deblock_frame_cuda(*args, 3, -2, mb_w, mb_h)
+    torch.cuda.synchronize()
+    assert TDB.launches["deblock"] == n0 + 1
+    for g, w in zip(got, _deblock_reference(args, 3, -2, mb_w, mb_h)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+def test_deblock_kernel_back_to_back_and_side_stream(cuda):
+    """Two K3 launches with no sync between them (each zeroes its own
+    counters on the stream), then one on a non-default stream."""
+    mb_w, mb_h, S = 7, 5, 2
+    c = _case(cuda, 9, S)
+    a = _frame_args(c["t"], c["rng"], S, mb_w, mb_h, False)
+    b = _frame_args(c["t"], c["rng"], S, mb_w, mb_h, True)
+    got_a = TDB.deblock_frame_cuda(*a, 1, 2, mb_w, mb_h)
+    got_b = TDB.deblock_frame_cuda(*b, 1, 2, mb_w, mb_h)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got_c = TDB.deblock_frame_cuda(*a, -1, 0, mb_w, mb_h)
+    torch.cuda.synchronize()
+    for got, args, offs in ((got_a, a, (1, 2)), (got_b, b, (1, 2)),
+                            (got_c, a, (-1, 0))):
+        for g, w in zip(got, TDB.deblock_frame_plain(*args, *offs, mb_w,
+                                                     mb_h)):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mb_h", [1, 4])
+@pytest.mark.parametrize("mb_w", [1, 6, 9])
+def test_luma_windows_kernel_edge_shapes(cuda, mb_w, mb_h):
+    """K2a's column groups of 8 MBs: one ragged group, a full group plus a
+    ragged one, a single MB column; one MB row and several."""
+    rng = np.random.default_rng(11)
+    recon = torch.as_tensor(rng.integers(0, 256, (2, 16 * mb_h, 16 * mb_w)),
+                            dtype=torch.uint8, device=cuda)
+    ref4 = TMC.make_ref_planes(recon).contiguous()
+    n0 = TMG.launches["luma_windows"]
+    got = TMG.luma_windows_cuda(ref4, mb_w, mb_h)
+    torch.cuda.synchronize()
+    assert TMG.launches["luma_windows"] == n0 + 1
+    assert torch.equal(got, TMG.luma_windows_plain(ref4, mb_w, mb_h))
+
+
+@pytest.mark.gpu
+def test_luma_windows_rejects_unaligned_ref4(cuda):
+    """K2a loads 16 bytes at a time: a strided or misaligned ref4 raises."""
+    ref4 = _case(cuda, 12)["ref4"]
+    S, P, Hp, Wp = ref4.shape
+    wide = torch.zeros((S, P, Hp, Wp + 4), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        TMG.luma_windows_cuda(wide[..., :Wp], MB_W, MB_H)
+    flat = torch.zeros(ref4.numel() + 1, dtype=torch.int32, device=cuda)
+    shifted = flat[1:].view(ref4.shape)
+    shifted.copy_(ref4)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 4
+    with pytest.raises(ValueError):
+        TMG.luma_windows_cuda(shifted, MB_W, MB_H)
 
 
 @pytest.mark.gpu

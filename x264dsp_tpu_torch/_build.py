@@ -44,7 +44,7 @@ SIGNATURES = {
         "x264t_chroma_windows": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     },
     "deblock.cu": {
-        "x264t_deblock": (_P,) * 9 + (_I,) * 5 + (_P,),
+        "x264t_deblock": (_P,) * 10 + (_I,) * 5 + (_P,),
         "x264t_deblock_wave_luma": (_P,) * 6 + (_I,) * 4 + (_P,),
         "x264t_deblock_wave_chroma": (_P,) * 7 + (_I,) * 4 + (_P,),
         "x264t_filter_regions": (_P,) * 14 + (_I,) + (_P,),

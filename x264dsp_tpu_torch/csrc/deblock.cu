@@ -14,22 +14,32 @@
 //
 // Layout: planes in place, y (S, H, W), u and v (S, H/2, W/2) int32;
 // bs (S, mb_h, mb_w, 2, 4, 4) [dir][edge][group]; intra, feo, qp, qpc
-// (S, mb_h, mb_w) int32; tab = alpha[52] | beta[52] | tc0[52][4].
+// (S, mb_h, mb_w) int32; tab = alpha[52] | beta[52] | tc0[52][4]; sync
+// (1 + 2 S mb_h) int32 scratch, zeroed by the entry point on the launch's
+// stream.
 //
-// Raster order makes each MB depend on its left, top and top-right
-// neighbours, so the MBs of one diagonal x + 2y = d are independent and
-// their pixel footprints are disjoint. Bound on the H100: latency of the
-// mb_w + 2*mb_h - 2 dependent diagonal steps (254 at 1080p), not bytes
-// or operations. Design: one block per (stream, plane group) walks all
-// diagonals with __syncthreads between steps, so there is one launch per
-// frame batch and no skewed layout. Per MB, 16 threads own one pixel row
-// each for the 4 vertical edges (row held in registers), then one pixel
-// column each for the 4 horizontal edges, in deblock.c order; the p-side
-// writes land in the left and top neighbours.
+// Raster order makes MB (x, y) wait for its left neighbour and for MB
+// (x + 1, y - 1), whose edge 0 writes the 3 right columns of (x, y - 1)
+// that the top edge of (x, y) reads and writes. Bound on the H100: not
+// bytes (0.06 ms at 1080p, S = 8) or operations but the critical path,
+// mb_w + 2 (mb_h - 1) dependent MB steps (254 at 1080p) and mb_h - 1
+// handoffs between rows. Design: a row pipeline. One warp per (MB row,
+// stream, plane group) walks its row in order, 2 MBs behind the row above
+// (1088 CTAs at 1080p, S = 8, so the rows of all streams run at once):
+// - each row publishes its count of finished MBs (__threadfence, then
+//   st.release.gpu) and the row below spins on it with ld.acquire.gpu;
+//   pixels another row wrote are read with __ldcg, past the SM's L1;
+// - a CTA takes its row from an atomic ticket, rows in order, so it only
+//   ever waits on a CTA that has started (blockIdx order is not relied on);
+// - per MB, the critical path holds one wait, one L2 read of the 4 rows
+//   above, the filter and the stores: the MB's own pixels and its edge
+//   parameters (grids only) are read before the wait, the alpha / beta /
+//   tc0 table sits in shared memory, and the MB is filtered in a shared
+//   tile with its left halo carried from the previous MB;
+// - 16 lanes own one pixel line each in registers for the 4 vertical edges,
+//   then one column each for the 4 horizontal edges, in deblock.c order.
 
 #include <cuda_runtime.h>
-
-#define NTHREADS 512
 
 struct Params {
     const int* bs;
@@ -105,150 +115,238 @@ __device__ __forceinline__ void edge_chroma(int* a, int c, int alpha,
     a[c] = clip3(q0 - delta, 0, 255);
 }
 
-struct EdgeSet {      // per-MB per-direction edge parameters
-    int alpha0, beta0, ia0, alpha1, beta1, ia1;
-    bool has0, internal, intra0;
+// Filter parameters of one pixel line of one MB in one direction: edge 0
+// (the MB edge, averaged QP, on when the neighbour exists) and the
+// internal edges (the MB's QP, off for first-edge-only MBs).
+struct LineParams {
+    int alpha0, beta0, alpha1, beta1;
+    int tc[4];              // per edge: tc0 (luma) or tc0 + 1 (chroma)
+    bool on0, internal, intra0;
 };
 
-__device__ EdgeSet edge_params(const Params& P, const int* qgrid, int s,
-                               int mby, int mbx, int dir) {
-    const int* alpha = P.tab;
-    const int* beta = P.tab + 52;
-    const int g = (s * P.mb_h + mby) * P.mb_w + mbx;
-    const bool has_nb = dir == 0 ? mbx > 0 : mby > 0;
-    const int gn = has_nb ? (dir == 0 ? g - 1 : g - P.mb_w) : g;
-    const int q = qgrid[g];
-    const int qe = (q + qgrid[gn] + 1) >> 1;
-    EdgeSet e;
-    e.ia0 = clip3(qe + P.alpha_off, 0, 51);
-    e.alpha0 = alpha[e.ia0];
-    e.beta0 = beta[clip3(qe + P.beta_off, 0, 51)];
-    e.ia1 = clip3(q + P.alpha_off, 0, 51);
-    e.alpha1 = alpha[e.ia1];
-    e.beta1 = beta[clip3(q + P.beta_off, 0, 51)];
-    e.has0 = has_nb;
-    e.internal = P.feo[g] == 0;
-    e.intra0 = P.intra[g] != 0 || (has_nb && P.intra[gn] != 0);
-    return e;
+// N = 16: luma line k, 4 edges on bS rows 0..3, group k / 4.
+// N = 8: chroma line k, 2 edges on bS rows 0 and 2, group k / 2.
+// tab is the CTA's shared copy of alpha | beta | tc0.
+template <int N>
+__device__ __forceinline__ LineParams line_params(
+        const Params& P, const int* tab, const int* qgrid, int g, int gn,
+        bool has_nb, int dir, int k) {
+    LineParams lp;
+    const int q = __ldg(qgrid + g);
+    const int qe = (q + __ldg(qgrid + gn) + 1) >> 1;
+    const int ia0 = clip3(qe + P.alpha_off, 0, 51);
+    const int ia1 = clip3(q + P.alpha_off, 0, 51);
+    lp.alpha0 = tab[ia0];
+    lp.beta0 = tab[52 + clip3(qe + P.beta_off, 0, 51)];
+    lp.alpha1 = tab[ia1];
+    lp.beta1 = tab[52 + clip3(q + P.beta_off, 0, 51)];
+    lp.on0 = has_nb;
+    lp.internal = __ldg(P.feo + g) == 0;
+    lp.intra0 = __ldg(P.intra + g) != 0
+                || (has_nb && __ldg(P.intra + gn) != 0);
+    const int* bs = P.bs + ((long long)g * 2 + dir) * 16;
+#pragma unroll
+    for (int ed = 0; ed < N / 4; ++ed) {
+        const int row = N == 16 ? ed : 2 * ed;
+        const int grp = N == 16 ? k >> 2 : k >> 1;
+        lp.tc[ed] = tab[104 + (ed == 0 ? ia0 : ia1) * 4
+                        + clip3(__ldg(bs + row * 4 + grp), 0, 3)]
+                    + (N == 16 ? 0 : 1);
+    }
+    return lp;
 }
 
-// One pixel line of one MB across its 4 luma edges of direction dir:
-// line k (row for dir 0, column for dir 1), pixels at base + i*step for
-// i in -4..15 (the 4 p-side pixels belong to the neighbour MB).
-__device__ void luma_line(int* plane, long long base, long long step,
-                          const Params& P, const EdgeSet& e, int s, int mby,
-                          int mbx, int dir, int k) {
-    int a[20];
+// One pixel line across the MB's edges of one direction, in the CTA's
+// tile: px[(i - 4) * step] for i in 0..N+3 (the first 4 are the
+// neighbour's p side; they are filtered only when edge 0 is on).
+template <int N>
+__device__ __forceinline__ void filter_line(int* px, int step,
+                                            const LineParams& lp) {
+    constexpr int L = N + 4;
+    int a[L];
 #pragma unroll
-    for (int i = 0; i < 20; ++i)
-        a[i] = (i >= 4 || e.has0) ? plane[base + (i - 4) * step] : 0;
-    const int* tc0t = P.tab + 104;
-    const int* bs = P.bs + ((((long long)s * P.mb_h + mby) * P.mb_w + mbx)
-                            * 2 + dir) * 16;
-    const int grp = k >> 2;
+    for (int i = 0; i < L; ++i) a[i] = px[(i - 4) * step];
 #pragma unroll
-    for (int ed = 0; ed < 4; ++ed) {
-        const bool on = ed == 0 ? e.has0 : e.internal;
-        if (!on) continue;
-        const int ia = ed == 0 ? e.ia0 : e.ia1;
-        const int tc0 = tc0t[ia * 4 + clip3(bs[ed * 4 + grp], 0, 3)];
-        edge_luma(a, 4 + 4 * ed, ed == 0 ? e.alpha0 : e.alpha1,
-                  ed == 0 ? e.beta0 : e.beta1, tc0, ed == 0 && e.intra0);
+    for (int ed = 0; ed < N / 4; ++ed) {
+        if (!(ed == 0 ? lp.on0 : lp.internal)) continue;
+        const int alpha = ed == 0 ? lp.alpha0 : lp.alpha1;
+        const int beta = ed == 0 ? lp.beta0 : lp.beta1;
+        if constexpr (N == 16)
+            edge_luma(a, 4 + 4 * ed, alpha, beta, lp.tc[ed],
+                      ed == 0 && lp.intra0);
+        else
+            edge_chroma(a, 4 + 4 * ed, alpha, beta, lp.tc[ed],
+                        ed == 0 && lp.intra0);
     }
 #pragma unroll
-    for (int i = 1; i < 20; ++i)
-        if (i >= 4 || e.has0) plane[base + (i - 4) * step] = a[i];
+    for (int i = 1; i < L; ++i) px[(i - 4) * step] = a[i];
 }
 
-// One chroma pixel line across the 2 chroma edges (bs rows 0 and 2).
-__device__ void chroma_line(int* plane, long long base, long long step,
-                            const Params& P, const EdgeSet& e, int s,
-                            int mby, int mbx, int dir, int k) {
-    int a[12];
-#pragma unroll
-    for (int i = 0; i < 12; ++i)
-        a[i] = (i >= 4 || e.has0) ? plane[base + (i - 4) * step] : 0;
-    const int* tc0t = P.tab + 104;
-    const int* bs = P.bs + ((((long long)s * P.mb_h + mby) * P.mb_w + mbx)
-                            * 2 + dir) * 16;
-    const int grp = k >> 1;
-#pragma unroll
-    for (int ed = 0; ed < 2; ++ed) {
-        const bool on = ed == 0 ? e.has0 : e.internal;
-        if (!on) continue;
-        const int ia = ed == 0 ? e.ia0 : e.ia1;
-        const int tc = tc0t[ia * 4 + clip3(bs[(2 * ed) * 4 + grp], 0, 3)]
-                       + 1;
-        edge_chroma(a, 4 + 4 * ed, ed == 0 ? e.alpha0 : e.alpha1,
-                    ed == 0 ? e.beta0 : e.beta1, tc, ed == 0 && e.intra0);
-    }
-#pragma unroll
-    for (int i = 2; i < 12; ++i)
-        if (i >= 4 || e.has0) plane[base + (i - 4) * step] = a[i];
+__device__ __forceinline__ int ld_acquire_gpu(const int* p) {
+    int v;
+    asm volatile("ld.acquire.gpu.global.s32 %0, [%1];"
+                 : "=r"(v) : "l"(p) : "memory");
+    return v;
 }
 
-__global__ void __launch_bounds__(NTHREADS)
-deblock_kernel(int* y, int* u, int* v, Params P) {
-    const int s = blockIdx.x;
-    const bool luma = blockIdx.y == 0;
-    const int mb_h = P.mb_h, mb_w = P.mb_w;
-    const int n_diag = mb_w + 2 * mb_h - 2;
-    const int slot = threadIdx.x >> 4;          // 16 threads per MB
-    const int lane = threadIdx.x & 15;
-    const int n_slots = NTHREADS / 16;
-    const int W = 16 * mb_w, H = 16 * mb_h;
-    const int Wc = W / 2, Hc = H / 2;
-    for (int d = 0; d < n_diag; ++d) {
-        const int y_lo = d - mb_w + 1 > 0 ? (d - mb_w + 2) / 2 : 0;
-        const int y_hi = min(mb_h - 1, d / 2);
-        for (int dir = 0; dir < 2; ++dir) {
-            for (int k = y_lo + slot; k <= y_hi; k += n_slots) {
-                const int mby = k, mbx = d - 2 * k;
-                if (luma) {
-                    const EdgeSet e = edge_params(P, P.qp, s, mby, mbx, dir);
-                    long long base, step;
-                    if (dir == 0) {     // row `lane`, vertical edges
-                        base = ((long long)s * H + 16 * mby + lane) * W
-                               + 16 * mbx;
-                        step = 1;
-                    } else {            // column `lane`, horizontal edges
-                        base = ((long long)s * H + 16 * mby) * W + 16 * mbx
-                               + lane;
-                        step = W;
-                    }
-                    luma_line(y, base, step, P, e, s, mby, mbx, dir, lane);
-                } else {
-                    const EdgeSet e = edge_params(P, P.qpc, s, mby, mbx,
-                                                  dir);
-                    int* plane = (lane & 8) ? v : u;
-                    const int k8 = lane & 7;
-                    long long base, step;
-                    if (dir == 0) {
-                        base = ((long long)s * Hc + 8 * mby + k8) * Wc
-                               + 8 * mbx;
-                        step = 1;
-                    } else {
-                        base = ((long long)s * Hc + 8 * mby) * Wc + 8 * mbx
-                               + k8;
-                        step = Wc;
-                    }
-                    chroma_line(plane, base, step, P, e, s, mby, mbx, dir,
-                                k8);
-                }
-            }
-            __syncthreads();
+__device__ __forceinline__ void st_release_gpu(int* p, int v) {
+    asm volatile("st.release.gpu.global.s32 [%0], %1;"
+                 :: "l"(p), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ void put4(int* d, int4 t) {
+    d[0] = t.x; d[1] = t.y; d[2] = t.z; d[3] = t.w;
+}
+
+__device__ __forceinline__ int4 get4(const int* d) {
+    return make_int4(d[0], d[1], d[2], d[3]);
+}
+
+#define K3_THREADS 32
+
+// One MB row of one stream and plane group, walked by one warp. N = 16,
+// NP = 1: luma; N = 8, NP = 2: u and v. The tile holds, per plane, the
+// MB (rows and columns 4..N+3) with 4 halo columns on the left (the
+// previous MB's last 4 columns, carried in shared memory) and 4 halo rows
+// on top (the row above's pixels, read after the wait).
+template <int N, int NP>
+__device__ void deblock_row(int* p0, int* p1, const Params& P,
+                            const int* qgrid, const int* tab, int* tile,
+                            int s, int y, const int* above, int* mine) {
+    constexpr int T = N + 4;        // tile side
+    constexpr int TS = T + 1;       // odd row stride: no bank conflicts
+    constexpr int TP = T * TS;      // ints per plane
+    constexpr int V = N / 4;        // int4 per MB pixel row
+    constexpr int OWN = NP * N * V / K3_THREADS;    // int4 per lane
+    const int lane = threadIdx.x;
+    const int mb_w = P.mb_w;
+    const int Wp = N * mb_w;
+    const long long frame = (long long)s * N * P.mb_h * Wp;
+    const int pl = lane / N, k = lane % N;      // compute lanes: 0..15
+    auto at = [&](int p, int r, int c) {
+        return (p ? p1 : p0) + frame + (long long)r * Wp + c;
+    };
+    for (int i = lane; i < NP * TP; i += K3_THREADS) tile[i] = 0;
+    __syncwarp();
+    int seen = 0;
+    for (int x = 0; x < mb_w; ++x) {
+        // The MB's own pixels are untouched until this step (every MB
+        // that writes them comes later in raster order), and its filter
+        // parameters depend on the grids only: both are read before the
+        // wait.
+        int4 own[OWN];
+#pragma unroll
+        for (int j = 0; j < OWN; ++j) {
+            const int i = lane + K3_THREADS * j;
+            const int p = i / (N * V), r = (i / V) % N, v = i % V;
+            own[j] = __ldcg(reinterpret_cast<const int4*>(
+                at(p, N * y + r, N * x + 4 * v)));
         }
+        const int g = (s * P.mb_h + y) * mb_w + x;
+        const LineParams lv = line_params<N>(P, tab, qgrid, g,
+                                             x > 0 ? g - 1 : g, x > 0, 0, k);
+        const LineParams lh = line_params<N>(P, tab, qgrid, g,
+                                             y > 0 ? g - mb_w : g, y > 0, 1,
+                                             k);
+        if (y > 0) {
+            // the row above has finished MB x + 1 (its edge 0 writes the
+            // 3 right columns of MB x there), or its last MB
+            const int need = min(x + 2, mb_w);
+            while (seen < need) seen = ld_acquire_gpu(above);
+            __syncwarp();
+            if (lane < NP * 4 * V) {        // top halo, past L1
+                const int p = lane / (4 * V), r = (lane / V) % 4;
+                const int v = lane % V;
+                put4(tile + p * TP + r * TS + 4 + 4 * v,
+                     __ldcg(reinterpret_cast<const int4*>(
+                         at(p, N * y - 4 + r, N * x + 4 * v))));
+            }
+        }
+#pragma unroll
+        for (int j = 0; j < OWN; ++j) {
+            const int i = lane + K3_THREADS * j;
+            const int p = i / (N * V), r = (i / V) % N, v = i % V;
+            put4(tile + p * TP + (4 + r) * TS + 4 + 4 * v, own[j]);
+        }
+        __syncwarp();
+        if (lane < NP * N)          // row k: the vertical edges
+            filter_line<N>(tile + pl * TP + (4 + k) * TS + 4, 1, lv);
+        __syncwarp();
+        if (lane < NP * N)          // column k: the horizontal edges
+            filter_line<N>(tile + pl * TP + 4 * TS + 4 + k, TS, lh);
+        __syncwarp();
+        // Write back what is final for this row: the top halo's 3 rows
+        // the MB's top edge filtered, and tile columns 0..N-1 (the left
+        // neighbour's last 4 columns and this MB's first N - 4). The MB's
+        // last 4 columns wait for the next MB's edge 0, except at the end.
+        if (y > 0 && lane < NP * 3 * V) {
+            const int p = lane / (3 * V), r = 1 + (lane / V) % 3;
+            const int v = lane % V;
+            *reinterpret_cast<int4*>(at(p, N * y - 4 + r, N * x + 4 * v)) =
+                get4(tile + p * TP + r * TS + 4 + 4 * v);
+        }
+        for (int i = lane; i < NP * N * V; i += K3_THREADS) {
+            const int p = i / (N * V), r = (i / V) % N, v = i % V;
+            if (v == 0 && x == 0) continue;     // left of the frame
+            *reinterpret_cast<int4*>(at(p, N * y + r, N * x - 4 + 4 * v)) =
+                get4(tile + p * TP + (4 + r) * TS + 4 * v);
+        }
+        if (x == mb_w - 1 && lane < NP * N) {
+            const int p = lane / N, r = lane % N;
+            *reinterpret_cast<int4*>(at(p, N * y + r, N * x + N - 4)) =
+                get4(tile + p * TP + (4 + r) * TS + N);
+        }
+        // publish: every lane's stores, then the row's progress
+        __threadfence();
+        __syncwarp();
+        if (lane == 0) st_release_gpu(mine, x + 1);
+        // carry this MB's last 4 columns into the next tile's left halo
+        for (int i = lane; i < NP * N * 4; i += K3_THREADS) {
+            const int p = i / (4 * N), r = (i / 4) % N, c = i % 4;
+            int* row = tile + p * TP + (4 + r) * TS;
+            row[c] = row[N + c];
+        }
+        __syncwarp();
     }
+}
+
+// One CTA (one warp) per (MB row, stream, plane group). sync[0] hands out
+// tickets, sync[1 + (2 s + group) * mb_h + row] is a row's count of
+// finished MBs; x264t_deblock zeroes sync on the stream before the launch.
+__global__ void __launch_bounds__(K3_THREADS)
+deblock_kernel(int* y, int* u, int* v, Params P, int S, int* sync) {
+    __shared__ int tab[312];
+    __shared__ int tile[20 * 21];   // luma 20 x 21; chroma 2 x 12 x 13
+    __shared__ int ticket;
+    if (threadIdx.x == 0) ticket = atomicAdd(sync, 1);
+    for (int i = threadIdx.x; i < 312; i += K3_THREADS) tab[i] = P.tab[i];
+    __syncwarp();
+    // tickets follow the start order of the CTAs, and rows take them in
+    // order: a CTA waits only on a row whose CTA started before it
+    const int t = ticket;
+    const int row = t / (2 * S), grp = t % (2 * S);
+    int* prog = sync + 1 + grp * P.mb_h;
+    const int* above = row > 0 ? prog + row - 1 : prog;
+    if (grp & 1)
+        deblock_row<8, 2>(u, v, P, P.qpc, tab, tile, grp >> 1, row, above,
+                          prog + row);
+    else
+        deblock_row<16, 1>(y, y, P, P.qp, tab, tile, grp >> 1, row, above,
+                           prog + row);
 }
 
 extern "C" int x264t_deblock(int* y, int* u, int* v, const int* bs,
                              const int* intra, const int* feo, const int* qp,
-                             const int* qpc, const int* tab, int S, int mb_h,
-                             int mb_w, int alpha_off, int beta_off,
-                             void* stream) {
+                             const int* qpc, const int* tab, int* sync,
+                             int S, int mb_h, int mb_w, int alpha_off,
+                             int beta_off, void* stream) {
     Params P{bs, intra, feo, qp, qpc, tab, mb_h, mb_w, alpha_off, beta_off};
-    dim3 grid(S, 2);
-    deblock_kernel<<<grid, NTHREADS, 0, (cudaStream_t)stream>>>(y, u, v, P);
+    const int rows = 2 * S * mb_h;
+    cudaError_t err = cudaMemsetAsync(sync, 0, sizeof(int) * (1 + rows),
+                                      (cudaStream_t)stream);
+    if (err != cudaSuccess) return (int)err;
+    deblock_kernel<<<rows, K3_THREADS, 0, (cudaStream_t)stream>>>(y, u, v, P,
+                                                                  S, sync);
     return (int)cudaGetLastError();
 }
 

@@ -7,7 +7,8 @@ average on MB edges (:341-430). It has three routes that compute the
 same function, the counterpart of the JAX ``use_pallas`` argument:
 
 - ``route=None`` (default): kernel K3 (``csrc/deblock.cu``) reads the raw
-  per-MB grids and walks the whole wavefront in one launch;
+  per-MB grids and filters the whole frame in one launch, one warp per MB
+  row, each row 2 MBs behind the row above;
 - ``route="wave"``: ``wave_lanes`` precomputes the per-diagonal per-slot
   filter lanes, then kernels K5a (``deblock_wave_luma``) and K5b
   (``deblock_wave_chroma``) walk the wavefront from those lanes, one
@@ -27,8 +28,9 @@ disjoint indices.
 K3 replaces x264dsp_tpu/ops/pallas/deblock_skew.py::deblock_skew_call,
 K5a/K5b replace ops/pallas/deblock_wave.py::deblock_wave_luma/_chroma and
 K6 replaces ops/pallas/deblock_filter.py::filter_regions. K3 and K5 are
-bound by the latency of the 254 dependent diagonal steps at 1080p, so
-each runs one block per stream (and plane group) that walks every
+bound by the latency of the 254 dependent MB steps at 1080p: K3 pipelines
+the MB rows of all streams across the SMs (one CTA per row, progress
+counters between rows), K5 runs one block per stream that walks every
 diagonal in global memory (see the source notes in the .cu); none keeps
 the TPU's skewed lane layout, superwindows or one-hot matmuls.
 """
@@ -354,12 +356,15 @@ def deblock_frame_cuda(y, u, v, bs, intra_mb, first_edge_only, qp, qpc,
                            (qp, grid, "qp"), (qpc, grid, "qpc")):
         _build.require_cuda(t, torch.int32, shape, name)
     oy, ou, ov = _copy(y), _copy(u), _copy(v)
+    # ticket and per-row progress counters (zeroed by the entry point)
+    sync = torch.empty(1 + 2 * S * mb_h, dtype=torch.int32, device=y.device)
     lib = _build.lib()
     code = lib.x264t_deblock(
         oy.data_ptr(), ou.data_ptr(), ov.data_ptr(), bs.data_ptr(),
         intra_mb.data_ptr(), first_edge_only.data_ptr(), qp.data_ptr(),
-        qpc.data_ptr(), device_table(_KERNEL_TAB, y.device).data_ptr(), S, mb_h, mb_w,
-        int(alpha_off), int(beta_off), _build.stream_ptr(y.device))
+        qpc.data_ptr(), device_table(_KERNEL_TAB, y.device).data_ptr(),
+        sync.data_ptr(), S, mb_h, mb_w, int(alpha_off), int(beta_off),
+        _build.stream_ptr(y.device))
     _build.check(code, "x264t_deblock")
     launches["deblock"] += 1
     return oy, ou, ov

@@ -6,7 +6,8 @@ the padded hpel planes (kernels K2a / K2b, ``csrc/windows.cu``, on a
 CUDA tensor; ``*_plain`` on a CPU tensor). The windows are uint8: pixels
 are <= 255, so they equal the TPU path's bf16 windows at half the bytes.
 K2 replaces x264dsp_tpu/ops/pallas/windows.py::luma_windows_pallas and
-::chroma_windows_pallas; on the H100 it is a bandwidth-bound gather-copy.
+::chroma_windows_pallas; on the H100 it is a bandwidth-bound copy (K2a
+through a ring of source rows in shared memory, csrc/windows.cu).
 
 The MC functions read blocks out of the windows with direct indexed
 loads (``torch.gather``) where the TPU path multiplies by one-hot bf16
@@ -63,6 +64,9 @@ def luma_windows_cuda(ref4, mb_w: int, mb_h: int):
     _build.require_cuda(ref4, torch.int32, (S, 4, Hp, Wp), "ref4")
     if Hp < 16 * mb_h + 2 * MC.PAD_MC or Wp < 16 * mb_w + 2 * MC.PAD_MC:
         raise ValueError("ref4 smaller than the padded frame")
+    if ref4.data_ptr() % 16 or Wp % 4:
+        raise ValueError("ref4: the kernel's 16-byte loads need a 16-byte "
+                         "aligned tensor whose width is a multiple of 4")
     out = torch.empty((S, mb_h * mb_w, 4, WIN_L, WIN_L), dtype=torch.uint8,
                       device=ref4.device)
     code = _build.lib().x264t_luma_windows(

@@ -1,0 +1,151 @@
+"""Time K3 (whole-frame deblock) and K2a (luma MC windows) of one checkout
+on one GPU, at the main path's 1080p 8-stream shapes:
+
+    python x264dsp_tpu_torch/tools/kernel_ab.py --root DIR [--ptxas]
+
+DIR is the root of a checkout of this repository (this one, or an
+unpacked older commit): its ``x264dsp_tpu_torch`` package is imported and
+its ``csrc/`` kernels are built into DIR/build/kernels. To compare two
+commits, run the script once per checkout, in turns (A, B, B, A), inside
+one call on one card. The script is run as a file, not as a module, so
+that it imports DIR's package and not its own.
+
+Prints the card's name and power limit, then one JSON line: mean ms per
+launch over CUDA events (after a warm-up), for K3 on a P-type and an
+all-intra frame batch and for K2a; K3's us per critical-path MB step
+(ms / (mb_w + 2 mb_h - 2)) and its us per MB on one MB row of the P-type
+batch (steps without handoffs) and on one MB column (each step after a
+handoff from the row above); a digest of each kernel's output, which
+must be equal across checkouts. With --ptxas, also the registers, stack
+and spills that ``nvcc -Xptxas -v`` reports for the two sources.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+
+W, H, S = 1920, 1088, 8
+
+
+def digest(*ts) -> str:
+    h = hashlib.sha256()
+    for t in ts:
+        h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def time_cuda(fn, reps: int) -> float:
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def ptxas(root: Path, build) -> list:
+    """`nvcc -Xptxas -v` on the K2 and K3 sources: the kernel lines."""
+    out = []
+    for name in ("deblock.cu", "windows.cu"):
+        obj = build.BUILD_DIR / f"ptxas_{name}.o"
+        obj.parent.mkdir(parents=True, exist_ok=True)
+        flags = [f for f in build.NVCC_FLAGS if f not in ("-shared",)]
+        r = subprocess.run([build._nvcc(), *flags, "-Xptxas", "-v", "-c",
+                            "-o", str(obj), str(build.SRC_DIR / name)],
+                           capture_output=True, text=True, timeout=600)
+        if r.returncode != 0:
+            sys.exit(f"nvcc failed on {name}:\n{r.stderr}")
+        out += [f"{name}: {line.strip()}" for line in r.stderr.splitlines()
+                if "Compiling entry" in line or "registers" in line
+                or "spill" in line]
+    return out
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", required=True, type=Path)
+    ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--ptxas", action="store_true")
+    args = ap.parse_args(argv)
+    root = args.root.resolve()
+    sys.path.insert(0, str(root))
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("needs a CUDA device")
+    import x264dsp_tpu_torch
+    if Path(x264dsp_tpu_torch.__file__).resolve().parents[1] != root:
+        sys.exit(f"imported {x264dsp_tpu_torch.__file__}, not {root}")
+    from x264dsp_tpu_torch import _build
+    from x264dsp_tpu_torch.ops import deblock as DB
+    from x264dsp_tpu_torch.ops import mc as MC
+    from x264dsp_tpu_torch.ops import mcgather as MG
+    from x264dsp_tpu_torch.ops.tables import CHROMA_QP_TABLE
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    print(f"card: {smi}")
+    _build.lib()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(2024)
+    mb_w, mb_h = W // 16, H // 16
+
+    def t(a, dtype=torch.int32):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                               device=dev)
+    recon = t(rng.integers(0, 256, (S, H, W)), torch.uint8)
+    ref4 = MC.make_ref_planes(recon).contiguous()
+    blocky = np.kron(rng.integers(0, 256, (S, mb_h * 4, mb_w * 4)),
+                     np.ones((1, 4, 4), np.int64))
+    y = t((blocky + rng.integers(-6, 7, (S, H, W))).clip(0, 255))
+    cu = np.kron(rng.integers(0, 256, (S, mb_h * 2, mb_w * 2)),
+                 np.ones((1, 4, 4), np.int64))
+    u, v = t(cu), t(255 - cu)
+    qp = rng.integers(20, 41, (S, mb_h, mb_w))
+    grid = (S, mb_h, mb_w)
+    p_args = (y, u, v, t(rng.integers(0, 3, grid + (2, 4, 4))),
+              t(np.zeros(grid)), t(rng.random(grid) < 0.2), t(qp),
+              t(CHROMA_QP_TABLE[qp]), 0, 0, mb_w, mb_h)
+    i_args = (y, u, v, t(np.full(grid + (2, 4, 4), 3)), t(np.ones(grid)),
+              t(np.zeros(grid)), t(qp), t(CHROMA_QP_TABLE[qp]), 0, 0, mb_w,
+              mb_h)
+    steps = mb_w + 2 * mb_h - 2
+    rec = {"root": str(args.root), "card": smi, "shape": [S, H, W]}
+    for tag, a in (("P", p_args), ("I", i_args)):
+        ms = time_cuda(lambda: DB.deblock_frame_cuda(*a), args.reps)
+        rec[f"deblock[{tag}]_ms"] = ms
+        rec[f"deblock[{tag}]_us_per_step"] = 1e3 * ms / steps
+        rec[f"deblock[{tag}]_digest"] = digest(*DB.deblock_frame_cuda(*a))
+    # where K3's time goes: one MB row (mb_w steps, no handoff) and one MB
+    # column (mb_h steps, each after a handoff from the row above)
+    for label, cw, ch in (("row", mb_w, 1), ("column", 1, mb_h)):
+        a = [x[:, :16 * ch, :16 * cw] if i == 0 else
+             x[:, :8 * ch, :8 * cw] if i < 3 else x[:, :ch, :cw]
+             for i, x in enumerate(p_args[:8])]
+        a = [x.contiguous() for x in a] + [0, 0, cw, ch]
+        ms = time_cuda(lambda: DB.deblock_frame_cuda(*a), args.reps)
+        rec[f"deblock[P]_one_{label}_{cw}x{ch}_us_per_mb"] = \
+            1e3 * ms / (cw * ch)
+    rec["luma_windows_ms"] = time_cuda(
+        lambda: MG.luma_windows_cuda(ref4, mb_w, mb_h), args.reps)
+    rec["luma_windows_digest"] = digest(MG.luma_windows_cuda(ref4, mb_w,
+                                                             mb_h))
+    if args.ptxas:
+        for line in ptxas(root, _build):
+            print(line)
+    print(json.dumps(rec))
+
+
+if __name__ == "__main__":
+    main()
