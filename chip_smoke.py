@@ -8,10 +8,13 @@ Phases (any failure exits non-zero):
      filter) against its plain PyTorch version at the 1920x1088 shapes
      (R = 16, S = 8; K6 at one full diagonal of all streams, 480
      regions), exact equality, with CUDA-event times, the least time the
-     card could take for the same work (bound_ms) and, where one PyTorch
-     call computes the same function, that call's time (library_ms); K3
-     also in us per critical-path MB step (254 at 1080p); the wave and
-     region deblock routes against K3 on the same frame;
+     card could take for the same work (bound_ms; for K1 and K4 their
+     packed four-byte SADs at the int32 peak, beside the rate that the
+     probe x264dsp_tpu_torch/tools/sad_rate.cu measures in this run) and,
+     where one PyTorch call computes the same function, that call's time
+     (library_ms); K3 also in us per critical-path MB step (254 at
+     1080p); the wave and region deblock routes against K3 on the same
+     frame;
   3. the BatchEncoder on the GPU against the same on the CPU (both pack
      CAVLC with the device packer): the main path on a 64x48 clip and
      faster-1ref (HEX, subme 4, partitions) on a 64x64 split-motion clip
@@ -161,13 +164,26 @@ def kernel_checks():
                             (Hc * Wc, 8 * Wc, 8, Wc, 1), o * Wc + o)
         return v.to(torch.uint8).reshape(S, mb_h * mb_w, MG.WIN_C, MG.WIN_C)
 
-    # a subtract-absolute and an add per pixel and full-pel offset
-    sad_ops = 2 * S * H * W * n * n
+    # K1 and K4 sum four packed byte differences per instruction
+    # (VABSDIFF4.U8.ACC, issued at the int32 rate: 64 lanes per SM and
+    # clock), so their operations are S H W n^2 / 4 packed sums at
+    # INT32_OPS_S. The probe (x264dsp_tpu_torch/tools/sad_rate.cu) measures
+    # the rate the instruction reaches on this card, printed beside the
+    # bound with the int32 formulation's bound (a subtract-absolute and an
+    # add per pixel and offset).
+    from x264dsp_tpu_torch.tools import sad_rate
+    rate = sad_rate.rate()
+    print(f"packed SAD rate (probe): {rate:.4e} sums/s = "
+          f"{rate / INT32_OPS_S:.3f} of the {INT32_OPS_S:.4e} peak")
+    sad_sums = S * H * W * n * n // 4
+    int32_ms = 2 * S * H * W * n * n / INT32_OPS_S * 1e3
+    probe_ms = sad_sums / rate * 1e3
     sad_in = nbytes(fenc, strips)
     win_l = S * mb_h * mb_w * 4 * MG.WIN_L ** 2        # uint8 out
     win_c = S * mb_h * mb_w * MG.WIN_C ** 2
     # name, source, TPU kernel, kernel, plain, library call or None,
-    # kernel reps, plain reps, (bytes moved, int32 operations)
+    # kernel reps, plain reps, (bytes moved, operations at the int32 rate:
+    # for K1 and K4 their packed sums)
     cases = [
         ("sad_surface16", "x264dsp_tpu_torch/csrc/me_sad.cu",
          "x264dsp_tpu/ops/pallas/me_sad.py:138",
@@ -175,14 +191,14 @@ def kernel_checks():
                                                       mb_h, R),
          lambda: me_sad.sad_cost_surface16_lanes_plain(fenc, strips, mb_w,
                                                        mb_h, R),
-         None, 10, 1, (sad_in + 4 * S * mb_h * mb_w * n * n, sad_ops)),
+         None, 10, 1, (sad_in + 4 * S * mb_h * mb_w * n * n, sad_sums)),
         ("sad_surfaces_8x8", "x264dsp_tpu_torch/csrc/me_sad.cu",
          "x264dsp_tpu/ops/pallas/me_sad.py:72",
          lambda: me_sad.sad_cost_surfaces_8x8_cuda(fenc, strips, mb_w,
                                                    mb_h, R),
          lambda: me_sad.sad_cost_surfaces_8x8_plain(fenc, strips, mb_w,
                                                     mb_h, R),
-         None, 10, 1, (sad_in + 16 * S * mb_h * mb_w * n * n, sad_ops)),
+         None, 10, 1, (sad_in + 16 * S * mb_h * mb_w * n * n, sad_sums)),
         ("luma_windows", "x264dsp_tpu_torch/csrc/windows.cu",
          "x264dsp_tpu/ops/pallas/windows.py:30",
          lambda: MG.luma_windows_cuda(ref4, mb_w, mb_h),
@@ -282,7 +298,9 @@ def kernel_checks():
         # K3 is bound by its critical path: mb_w + 2 mb_h - 2 MB steps
         per_step = (f"  {1e3 * ms / (mb_w + 2 * mb_h - 2):.3f} us per "
                     f"critical-path step" if name.startswith("deblock[")
-                    else "")
+                    else (f"  (at the probe's rate {probe_ms:.3f} ms; "
+                          f"int32 formulation {int32_ms:.3f} ms)")
+                    if name.startswith("sad_") else "")
         print(f"kernel {name:22s} max_abs_err {err}  {ms:9.3f} ms  "
               f"plain {plain_ms:10.3f} ms  library "
               + (f"{library_ms:.3f} ms" if lib is not None else "none")

@@ -214,3 +214,20 @@ def test_unknown_route_raises():
     case = _case(2, 2, seed=3, all_intra=False)
     with pytest.raises(ValueError, match="route"):
         TDB.deblock_frame(*_args(case), 0, 0, 2, 2, route="skew")
+
+
+@pytest.mark.parametrize("mb_h", [3, 1])
+@pytest.mark.parametrize("kind", list(CASES))
+def test_plain_matches_jax_on_one_mb_wide_frames(kind, mb_h):
+    """deblock_frame_plain on a frame one MB wide, whose odd diagonals are
+    empty, against the JAX deblock_frame (its XLA path on the CPU, one
+    compiled program per shape), stream by stream."""
+    case = _case(1, mb_h, **CASES[kind])
+    got = TDB.deblock_frame_plain(*_args(case), 1, -1, 1, mb_h)
+    for s in range(S):
+        want = JDB.deblock_frame(
+            *(jnp.asarray(case[k][s]) for k in ARG_NAMES), 1, -1, mb_w=1,
+            mb_h=mb_h, use_pallas=False)
+        for g, w, name in zip(got, want, "yuv"):
+            np.testing.assert_array_equal(g[s].numpy(), np.asarray(w),
+                                          err_msg=f"{name}, stream {s}")

@@ -70,6 +70,79 @@ def test_sad_surfaces_8x8_kernel_matches_plain(cuda):
                        lanes.permute(0, 1, 4, 2, 3))
 
 
+def _sad_inputs(cuda, seed, S, mb_w, mb_h, R, fill=None):
+    """Source planes and search strips: random pixels, or the source all
+    `fill` against strips all 255 - fill."""
+    rng = np.random.default_rng(seed)
+    fshape = (S, 16 * mb_h, 16 * mb_w)
+    sshape = (S, mb_h, 16 + 2 * R, 16 * mb_w + 2 * R)
+    if fill is None:
+        f, s = rng.integers(0, 256, fshape), rng.integers(0, 256, sshape)
+    else:
+        f, s = np.full(fshape, fill), np.full(sshape, 255 - fill)
+    return (torch.as_tensor(f, dtype=torch.int32, device=cuda),
+            torch.as_tensor(s, dtype=torch.int32, device=cuda))
+
+
+def _check_sad_kernels(fenc, strips, mb_w, mb_h, R):
+    """K1 and K4 against their plain versions, K4's quadrant sums against
+    K1, and one launch of each counted; returns (K1, K4)."""
+    n1 = TSAD.launches["sad_surface16"]
+    n4 = TSAD.launches["sad_surfaces_8x8"]
+    k1 = TSAD.sad_cost_surface16_lanes(fenc, strips, mb_w, mb_h, R)
+    k4 = TSAD.sad_cost_surfaces_8x8(fenc, strips, mb_w, mb_h, R)
+    torch.cuda.synchronize()
+    assert TSAD.launches["sad_surface16"] == n1 + 1
+    assert TSAD.launches["sad_surfaces_8x8"] == n4 + 1
+    assert torch.equal(k1, TSAD.sad_cost_surface16_lanes_plain(
+        fenc, strips, mb_w, mb_h, R))
+    assert torch.equal(k4, TSAD.sad_cost_surfaces_8x8_plain(
+        fenc, strips, mb_w, mb_h, R))
+    assert torch.equal(k4.sum((3, 4), dtype=torch.int32),
+                       k1.permute(0, 1, 4, 2, 3))
+    return k1, k4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mb_w, mb_h, S, R", [
+    (1, 1, 1, 4), (1, 4, 3, 16), (9, 1, 1, 16), (9, 2, 3, 4), (8, 1, 3, 16),
+    (3, 2, 1, 5), (13, 3, 1, 32), (2, 2, 1, 64), (1, 1, 3, 64)])
+def test_sad_kernels_edge_shapes(cuda, mb_w, mb_h, S, R):
+    """K1 and K4 on one MB column, column counts that are no multiple of
+    the CTA's 8-MB group, one MB row, S in {1, 3}, and search ranges that
+    take one dx / dy tile (R <= 16), several (32, 64) or an odd strip
+    width (R = 5: no 16-byte loads)."""
+    fenc, strips = _sad_inputs(cuda, 20 + R, S, mb_w, mb_h, R)
+    _check_sad_kernels(fenc, strips, mb_w, mb_h, R)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fill", [0, 255])
+def test_sad_kernels_extreme_pixels(cuda, fill):
+    """All 0 against all 255 (and the reverse): every sum is the largest,
+    65,280 for a 16x16 MB and 16,320 for a quadrant."""
+    fenc, strips = _sad_inputs(cuda, 0, 2, 9, 2, 16, fill)
+    k1, k4 = _check_sad_kernels(fenc, strips, 9, 2, 16)
+    assert (k1 == 16 * 16 * 255).all() and (k4 == 8 * 8 * 255).all()
+
+
+@pytest.mark.gpu
+def test_sad_kernels_back_to_back(cuda):
+    """K1, K4, K1 on other inputs, with no sync between the launches."""
+    a = _sad_inputs(cuda, 1, 3, 10, 2, 16)
+    b = _sad_inputs(cuda, 2, 3, 10, 2, 16)
+    got = [TSAD.sad_cost_surface16_lanes(*a, 10, 2, 16),
+           TSAD.sad_cost_surfaces_8x8(*a, 10, 2, 16),
+           TSAD.sad_cost_surface16_lanes(*b, 10, 2, 16)]
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], TSAD.sad_cost_surface16_lanes_plain(
+        *a, 10, 2, 16))
+    assert torch.equal(got[1], TSAD.sad_cost_surfaces_8x8_plain(
+        *a, 10, 2, 16))
+    assert torch.equal(got[2], TSAD.sad_cost_surface16_lanes_plain(
+        *b, 10, 2, 16))
+
+
 @pytest.mark.gpu
 def test_window_kernels_match_plain(cuda):
     c = _case(cuda, 1)
@@ -131,20 +204,6 @@ def _deblock_args(c, intra):
     return _frame_args(c["t"], c["rng"], c["S"], MB_W, MB_H, intra)
 
 
-def _deblock_reference(args, alpha_off, beta_off, mb_w, mb_h):
-    """deblock_frame_plain on the same tensors; for a frame one MB wide,
-    whose odd diagonals are empty and which deblock_frame_plain's loop
-    cannot index, the wave route's plain versions (the same function)."""
-    if mb_w > 1:
-        return TDB.deblock_frame_plain(*args, alpha_off, beta_off, mb_w,
-                                       mb_h)
-    luma_l, chroma_l = TDB.wave_lanes(*args[3:], alpha_off, beta_off, mb_w,
-                                      mb_h)
-    return (TDB.deblock_wave_luma_plain(args[0], *luma_l, mb_w, mb_h),
-            *TDB.deblock_wave_chroma_plain(args[1], args[2], *chroma_l,
-                                           mb_w, mb_h))
-
-
 @pytest.mark.gpu
 @pytest.mark.parametrize("intra", [False, True])
 @pytest.mark.parametrize("S", [1, 3])
@@ -159,7 +218,7 @@ def test_deblock_kernel_edge_shapes(cuda, mb_w, mb_h, S, intra):
     got = TDB.deblock_frame_cuda(*args, 3, -2, mb_w, mb_h)
     torch.cuda.synchronize()
     assert TDB.launches["deblock"] == n0 + 1
-    for g, w in zip(got, _deblock_reference(args, 3, -2, mb_w, mb_h)):
+    for g, w in zip(got, TDB.deblock_frame_plain(*args, 3, -2, mb_w, mb_h)):
         assert torch.equal(g, w)
 
 

@@ -70,36 +70,61 @@ def _nvcc() -> str:
                        "toolkit (set CUDA_HOME)")
 
 
+def lib_path(src: Path) -> Path:
+    """The library built from `src`, named by a hash of its text."""
+    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    return BUILD_DIR / f"libx264t_{src.stem}_{digest}.so"
+
+
+def _start(src: Path):
+    """Start nvcc on `src` unless its library exists: (temporary output,
+    library, process), or None."""
+    path = lib_path(src)
+    if path.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    return tmp, path, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True)
+
+
+def _finish(src: Path, job) -> str:
+    """Wait for one nvcc and move its library into place; returns the
+    error text, or "" on success."""
+    tmp, path, proc = job
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        return f"nvcc failed on {src.name}:\n{log}"
+    os.replace(tmp, path)   # atomic against a concurrent build
+    return ""
+
+
+def compile_source(src: Path) -> Path:
+    """Compile one CUDA source (once per source hash); returns its
+    library."""
+    job = _start(src)
+    if job is not None:
+        err = _finish(src, job)
+        if err:
+            raise RuntimeError(err)
+    return lib_path(src)
+
+
 def _build() -> dict:
     """Compile every source that has no library yet, all at once.
     Returns {source name: library path}."""
     global build_seconds
-    paths, jobs = {}, {}
     t0 = time.perf_counter()
-    for name in SIGNATURES:
-        src = SRC_DIR / name
-        digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-        lib_path = BUILD_DIR / f"libx264t_{src.stem}_{digest}.so"
-        paths[name] = lib_path
-        if lib_path.exists():
-            continue
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-        jobs[name] = (tmp, lib_path, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True))
-    errors = []
-    for name, (tmp, lib_path, proc) in jobs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            errors.append(f"nvcc failed on {name}:\n{log}")
-        else:
-            os.replace(tmp, lib_path)   # atomic against a concurrent build
+    srcs = {name: SRC_DIR / name for name in SIGNATURES}
+    jobs = {name: job for name, src in srcs.items()
+            if (job := _start(src)) is not None}
+    errors = [err for name, job in jobs.items()
+              if (err := _finish(srcs[name], job))]
     if errors:
         raise RuntimeError("\n".join(errors))
     build_seconds = time.perf_counter() - t0 if jobs else 0.0
-    return paths
+    return {name: lib_path(src) for name, src in srcs.items()}
 
 
 class _Kernels:

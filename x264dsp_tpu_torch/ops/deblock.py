@@ -289,6 +289,8 @@ def deblock_frame_plain(y, u, v, bs, intra_mb, first_edge_only, qp, qpc,
         return alpha_t[ia], beta_t[ib], ia
 
     for ys_l, xs_l in diag_schedule(mb_w, mb_h):
+        if not ys_l:        # the odd diagonals of a frame one MB wide
+            continue
         ys = torch.tensor(ys_l, device=dev)
         xs = torch.tensor(xs_l, device=dev)
         xl = (xs - 1).clamp(min=0)

@@ -9,10 +9,14 @@ the lane layout [row, dy, dx, mbx] that the no-partitions walk reads;
 K4 returns the four 8x8-quadrant surfaces in the JAX layout [row, mbx,
 qy, qx, dy, dx] that partition analysis reads; both with a leading
 stream axis. K1 replaces the Pallas kernel ``_kernel16`` and K4
-``_kernel``; on the H100 both are bound by integer issue (a subtract,
-an absolute value and an add per pixel and offset), and the TPU's
-hi/lo-byte bf16 dot becomes plain int32 sums (see the source notes in
-the .cu).
+``_kernel``. On the H100 both pack the pixels to bytes in shared-memory
+search tiles and sum four absolute differences per instruction
+(``vabsdiff4`` with accumulate), where the TPU kernels took a hi/lo-byte
+bf16 dot (see the source note in the .cu).
+
+Precondition of the kernels: every value of ``fenc_y`` and ``strips`` is
+a pixel, 0..255 (the kernels use the low byte of each int32). The
+wrappers do not scan the inputs for it; both callers pass pixel planes.
 """
 
 from __future__ import annotations
@@ -64,7 +68,8 @@ def sad_cost_surface16_lanes_plain(fenc_y, strips, mb_w: int, mb_h: int,
 
 def sad_cost_surface16_lanes_cuda(fenc_y, strips, mb_w: int, mb_h: int,
                                   R: int):
-    """Kernel K1 (arguments as the plain version, int32 CUDA tensors)."""
+    """Kernel K1 (arguments as the plain version, int32 CUDA tensors
+    holding values 0..255)."""
     S = fenc_y.shape[0]
     n = 2 * R + 1
     _check_args(fenc_y, strips, mb_w, mb_h, R)
@@ -108,7 +113,8 @@ def sad_cost_surfaces_8x8_plain(fenc_y, strips, mb_w: int, mb_h: int,
 
 def sad_cost_surfaces_8x8_cuda(fenc_y, strips, mb_w: int, mb_h: int,
                                R: int):
-    """Kernel K4 (arguments as the plain version, int32 CUDA tensors)."""
+    """Kernel K4 (arguments as the plain version, int32 CUDA tensors
+    holding values 0..255)."""
     S = fenc_y.shape[0]
     n = 2 * R + 1
     _check_args(fenc_y, strips, mb_w, mb_h, R)

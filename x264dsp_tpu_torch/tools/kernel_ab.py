@@ -1,7 +1,9 @@
-"""Time K3 (whole-frame deblock) and K2a (luma MC windows) of one checkout
-on one GPU, at the main path's 1080p 8-stream shapes:
+"""Time the redesigned kernels of one checkout on one GPU, at the main
+path's 1080p 8-stream shapes: K1 (16x16 SAD surface), K4 (8x8-quadrant
+SAD surfaces), K3 (whole-frame deblock) and K2a (luma MC windows):
 
-    python x264dsp_tpu_torch/tools/kernel_ab.py --root DIR [--ptxas]
+    python x264dsp_tpu_torch/tools/kernel_ab.py --root DIR [--rate]
+        [--ptxas] [--sass]
 
 DIR is the root of a checkout of this repository (this one, or an
 unpacked older commit): its ``x264dsp_tpu_torch`` package is imported and
@@ -11,19 +13,28 @@ one call on one card. The script is run as a file, not as a module, so
 that it imports DIR's package and not its own.
 
 Prints the card's name and power limit, then one JSON line: mean ms per
-launch over CUDA events (after a warm-up), for K3 on a P-type and an
-all-intra frame batch and for K2a; K3's us per critical-path MB step
-(ms / (mb_w + 2 mb_h - 2)) and its us per MB on one MB row of the P-type
-batch (steps without handoffs) and on one MB column (each step after a
-handoff from the row above); a digest of each kernel's output, which
-must be equal across checkouts. With --ptxas, also the registers, stack
-and spills that ``nvcc -Xptxas -v`` reports for the two sources.
+launch over CUDA events (after a warm-up) for K1 and K4 (R = 16), for K3
+on a P-type and an all-intra frame batch and for K2a; K3's us per
+critical-path MB step (ms / (mb_w + 2 mb_h - 2)) and its us per MB on one
+MB row of the P-type batch (steps without handoffs) and on one MB column
+(each step after a handoff from the row above); a digest of each
+kernel's output, which must be equal across checkouts; K1's and K4's
+bounds: bytes over 3.35 TB/s, and their 4.55 G packed sums at the
+instruction's peak (``sad_rate.PEAK_SUMS_S``, the probe module beside
+this script). With --rate, also the packed-SAD rate that the probe
+reaches on the card (its build needs ``_build.compile_source``, so DIR
+must be a checkout that has it). With --ptxas, also the registers,
+stack, shared memory and spills that ``nvcc -Xptxas -v`` reports for the
+SAD, windows and deblock sources; with --sass, each SAD kernel's SASS
+opcode counts (``cuobjdump -sass``): the whole function, its largest
+loop body and its instructions per packed sum.
 """
 
 from __future__ import annotations
 
 import argparse
 import hashlib
+import importlib.util
 import json
 import subprocess
 import sys
@@ -31,7 +42,8 @@ from pathlib import Path
 
 import numpy as np
 
-W, H, S = 1920, 1088, 8
+W, H, S, R = 1920, 1088, 8, 16
+HBM_BYTES_S = 3.35e12        # H100 SXM data sheet
 
 
 def digest(*ts) -> str:
@@ -56,9 +68,10 @@ def time_cuda(fn, reps: int) -> float:
 
 
 def ptxas(root: Path, build) -> list:
-    """`nvcc -Xptxas -v` on the K2 and K3 sources: the kernel lines."""
+    """`nvcc -Xptxas -v` on the K1/K4, K2 and K3 sources: the kernel
+    lines (the SAD kernels' shared memory is dynamic: ptxas shows 0)."""
     out = []
-    for name in ("deblock.cu", "windows.cu"):
+    for name in ("me_sad.cu", "deblock.cu", "windows.cu"):
         obj = build.BUILD_DIR / f"ptxas_{name}.o"
         obj.parent.mkdir(parents=True, exist_ok=True)
         flags = [f for f in build.NVCC_FLAGS if f not in ("-shared",)]
@@ -73,11 +86,45 @@ def ptxas(root: Path, build) -> list:
     return out
 
 
+def load_sad_rate():
+    """The probe module beside this script, bound to DIR's package (it
+    uses DIR's _build for nvcc and the build directory); the SASS helpers
+    run on any checkout, the rate needs a _build with compile_source."""
+    path = Path(__file__).resolve().with_name("sad_rate.py")
+    spec = importlib.util.spec_from_file_location(
+        "x264dsp_tpu_torch.tools.sad_rate", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def sad_sass(build, probe) -> dict:
+    """Each SAD kernel's SASS: instruction count, opcode counts, its
+    largest loop body and instructions per packed sum (the count of the
+    packed-sum opcode; none in an int32 design)."""
+    lib = build._build()["me_sad.cu"]
+    funcs = probe.sass(lib)
+    out = {}
+    for name in ("sad_surface16_kernel", "sad_surfaces_8x8_kernel"):
+        insns = probe.function_named(funcs, name)
+        hist = probe.histogram(insns)
+        body = probe.loop_body(insns)
+        sums = sum(c for op, c in hist.items() if op.startswith("VABSDIFF4")
+                   or op.startswith("VSAD"))
+        out[name] = {"sass": len(insns), "opcodes": hist,
+                     "loop_sass": len(body),
+                     "loop_opcodes": probe.histogram(body),
+                     "sass_per_sum": len(insns) / sums if sums else None}
+    return out
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", required=True, type=Path)
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--rate", action="store_true")
     ap.add_argument("--ptxas", action="store_true")
+    ap.add_argument("--sass", action="store_true")
     args = ap.parse_args(argv)
     root = args.root.resolve()
     sys.path.insert(0, str(root))
@@ -91,6 +138,7 @@ def main(argv=None) -> None:
     from x264dsp_tpu_torch.ops import deblock as DB
     from x264dsp_tpu_torch.ops import mc as MC
     from x264dsp_tpu_torch.ops import mcgather as MG
+    from x264dsp_tpu_torch.ops import me_sad
     from x264dsp_tpu_torch.ops.tables import CHROMA_QP_TABLE
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -122,6 +170,27 @@ def main(argv=None) -> None:
               mb_h)
     steps = mb_w + 2 * mb_h - 2
     rec = {"root": str(args.root), "card": smi, "shape": [S, H, W]}
+    # K1 / K4 at R = 16: random source pixels against the strips of recon
+    fenc = t(rng.integers(0, 256, (S, H, W)))
+    strips = me_sad.make_ref_strips(ref4[:, 0], MC.PAD_MC, mb_w, mb_h, R)
+    n = 2 * R + 1
+    probe = load_sad_rate()
+    if args.rate:
+        rec["sad_rate_sums_per_s"] = probe.rate()
+    sums = S * H * W * n * n // 4
+    in_bytes = (fenc.numel() + strips.numel()) * 4
+    for name, fn, out_ints in (
+            ("sad_surface16", me_sad.sad_cost_surface16_lanes_cuda,
+             S * mb_h * mb_w * n * n),
+            ("sad_surfaces_8x8", me_sad.sad_cost_surfaces_8x8_cuda,
+             4 * S * mb_h * mb_w * n * n)):
+        rec[f"{name}_ms"] = time_cuda(
+            lambda f=fn: f(fenc, strips, mb_w, mb_h, R), args.reps)
+        rec[f"{name}_digest"] = digest(fn(fenc, strips, mb_w, mb_h, R))
+        rec[f"{name}_bound_bytes_ms"] = \
+            (in_bytes + 4 * out_ints) / HBM_BYTES_S * 1e3
+        rec[f"{name}_bound_ops_ms"] = sums / probe.PEAK_SUMS_S * 1e3
+    del fenc, strips
     for tag, a in (("P", p_args), ("I", i_args)):
         ms = time_cuda(lambda: DB.deblock_frame_cuda(*a), args.reps)
         rec[f"deblock[{tag}]_ms"] = ms
@@ -144,6 +213,9 @@ def main(argv=None) -> None:
     if args.ptxas:
         for line in ptxas(root, _build):
             print(line)
+    if args.sass:
+        for name, v in sad_sass(_build, probe).items():
+            print(f"sass {name}: {json.dumps(v)}")
     print(json.dumps(rec))
 
 
