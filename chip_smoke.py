@@ -7,7 +7,10 @@ Phases (any failure exits non-zero):
      deblock, K4 quadrant SAD surfaces, K5a/K5b wave deblock, K6 region
      filter) against its plain PyTorch version at the 1920x1088 shapes
      (R = 16, S = 8; K6 at one full diagonal of all streams, 480
-     regions), exact equality, with CUDA-event times, the least time the
+     regions), exact equality, with CUDA-event times over back-to-back
+     calls (ms: the host's time where a call's wrapper and launch take
+     longer than the kernel, as K6's do), the kernel's own device time
+     per launch from torch.profiler (device_ms), the least time the
      card could take for the same work (bound_ms; for K1 and K4 their
      packed four-byte SADs at the int32 peak, beside the rate that the
      probe x264dsp_tpu_torch/tools/sad_rate.cu measures in this run) and,
@@ -128,6 +131,7 @@ def kernel_checks():
     from x264dsp_tpu_torch.ops import mc as MC
     from x264dsp_tpu_torch.ops import mcgather as MG
     from x264dsp_tpu_torch.ops import me_sad
+    from x264dsp_tpu_torch.tools.kernel_ab import device_ms
     dev = torch.device("cuda")
     rng = np.random.default_rng(2024)
     mb_w, mb_h = W // 16, H // 16
@@ -292,6 +296,7 @@ def kernel_checks():
             fail(f"the library call for {name} computes another function")
         del got, want
         ms = time_cuda(kern, reps)
+        dev_ms = device_ms(kern, name.split("[")[0] + "_kernel", reps)
         plain_ms = time_cuda(plain, preps) if preps else once_ms
         library_ms = time_cuda(lib, reps) if lib is not None else None
         bound_ms, bound_by = bound(*work)
@@ -302,14 +307,16 @@ def kernel_checks():
                           f"int32 formulation {int32_ms:.3f} ms)")
                     if name.startswith("sad_") else "")
         print(f"kernel {name:22s} max_abs_err {err}  {ms:9.3f} ms  "
-              f"plain {plain_ms:10.3f} ms  library "
+              f"(device {dev_ms:.4f} ms)  plain {plain_ms:10.3f} ms  "
+              "library "
               + (f"{library_ms:.3f} ms" if lib is not None else "none")
               + f"  bound {bound_ms:.3f} ms ({bound_by})" + per_step)
         if err != 0:
             fail(f"kernel {name} disagrees with its plain version")
         rec.append(dict(name=name, route="cuda", source=src,
                         replaces=replaces, max_abs_err=err, ms=ms,
-                        plain_ms=plain_ms, bound_ms=bound_ms,
+                        device_ms=dev_ms, plain_ms=plain_ms,
+                        bound_ms=bound_ms,
                         bound_by=bound_by, library_ms=library_ms))
 
     # the three routes of deblock_frame on the same planes and grids:

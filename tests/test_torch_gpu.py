@@ -278,6 +278,46 @@ def test_luma_windows_rejects_unaligned_ref4(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("mb_w, mb_h, S", [
+    (w, h, s) for w in (1, 6, 9, 17) for h in (1, 4) for s in (1, 3)]
+    + [(17, 67, 3)])
+def test_chroma_windows_kernel_edge_shapes(cuda, mb_w, mb_h, S):
+    """K2b's column groups of 8 MBs (one ragged group, full groups plus a
+    ragged one, one MB column), one MB row and several, S in {1, 3}; at
+    17 x 67 x 3 the grid's 9 column groups x streams take bands of 2 MB
+    rows, the last band 1 row (67 is no multiple of 2)."""
+    rng = np.random.default_rng(13)
+    c = torch.as_tensor(rng.integers(0, 256, (S, 8 * mb_h, 8 * mb_w)),
+                        dtype=torch.uint8, device=cuda)
+    refc = TMC.pad_chroma(c).contiguous()
+    n0 = TMG.launches["chroma_windows"]
+    got = TMG.chroma_windows_cuda(refc, mb_w, mb_h)
+    torch.cuda.synchronize()
+    assert TMG.launches["chroma_windows"] == n0 + 1
+    assert torch.equal(got, TMG.chroma_windows_plain(refc, mb_w, mb_h))
+
+
+@pytest.mark.gpu
+def test_chroma_windows_rejects_unaligned_refc(cuda):
+    """K2b loads 16 bytes at a time: a strided refc, a misaligned one and
+    one whose width is no multiple of 4 raise."""
+    refc = _case(cuda, 14)["refc"]
+    S, Hc, Wc = refc.shape
+    wide = torch.zeros((S, Hc, Wc + 4), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        TMG.chroma_windows_cuda(wide[..., :Wc], MB_W, MB_H)
+    flat = torch.zeros(refc.numel() + 1, dtype=torch.int32, device=cuda)
+    shifted = flat[1:].view(refc.shape)
+    shifted.copy_(refc)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 4
+    with pytest.raises(ValueError, match="aligned"):
+        TMG.chroma_windows_cuda(shifted, MB_W, MB_H)
+    odd = torch.zeros((S, Hc, Wc + 1), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        TMG.chroma_windows_cuda(odd, MB_W, MB_H)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("intra", [False, True])
 def test_wave_kernels_match_plain(cuda, intra):
     """K5a and K5b against their plain versions on the same lanes, and the
@@ -329,6 +369,65 @@ def test_filter_regions_kernel_matches_plain(cuda, intra):
     assert TDB.launches["filter_regions"] == n0 + MB_W + 2 * MB_H - 2
     for g, w in zip(routed, TDB.deblock_frame(*args, 0, 0, MB_W, MB_H)):
         assert torch.equal(g, w)
+
+
+def _region_args(cuda, K, intra, seed):
+    """K6's arguments for K regions: random 20x20 / 12x12 regions and the
+    first K (2K for chroma) lane rows of a 20 x 12 MB, 3-stream frame
+    batch, padded slots among them (zero enables)."""
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.int32,
+                               device=cuda)
+    mb_w, mb_h = 20, 12
+    args = _frame_args(t, rng, 3, mb_w, mb_h, intra)
+    luma_l, chroma_l = TDB.wave_lanes(*args[3:], 1, -1, mb_w, mb_h)
+    ly = [x.reshape(-1, x.shape[-1])[:K].contiguous() for x in luma_l]
+    lc = [x.reshape(-1, x.shape[-1])[:2 * K].contiguous() for x in chroma_l]
+    assert ly[0].shape[0] == K and int(ly[1].sum()) > 0
+    return (t(rng.integers(0, 256, (K, 20, 20))),
+            t(rng.integers(0, 256, (2 * K, 12, 12))), ly[0], lc[0], ly[1],
+            ly[2], lc[1], lc[2], ly[3], ly[4], lc[3], lc[4])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("intra", [False, True])
+@pytest.mark.parametrize("K", [16, 32, 496])
+def test_filter_regions_kernel_sizes(cuda, K, intra):
+    """K6 at K regions (one CTA of 4 MBs and more), intra and non-intra
+    lanes: two launches back to back on other inputs with no sync between
+    them, then one on a non-default stream."""
+    a = _region_args(cuda, K, intra, 30 + K)
+    b = _region_args(cuda, K, intra, 31 + K)
+    n0 = TDB.launches["filter_regions"]
+    got_a = TDB.filter_regions_cuda(*a)
+    got_b = TDB.filter_regions_cuda(*b)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got_c = TDB.filter_regions_cuda(*a)
+    torch.cuda.synchronize()
+    assert TDB.launches["filter_regions"] == n0 + 3
+    for got, args in ((got_a, a), (got_b, b), (got_c, a)):
+        want = TDB.filter_regions_plain(*args)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", [0, 4, 11])
+def test_filter_regions_rejects_unaligned_tensors(cuda, which):
+    """K6 copies 16 bytes at a time: a region or lane tensor whose base is
+    not 16-byte aligned raises (regy, eny and blc here)."""
+    args = list(_region_args(cuda, 16, False, 40))
+    x = args[which]
+    flat = torch.zeros(x.numel() + 1, dtype=torch.int32, device=cuda)
+    shifted = flat[1:].view(x.shape)
+    shifted.copy_(x)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 4
+    args[which] = shifted
+    with pytest.raises(ValueError, match="aligned"):
+        TDB.filter_regions_cuda(*args)
 
 
 @pytest.mark.gpu

@@ -177,3 +177,21 @@ def test_cpu_calls_launch_no_kernel(planes):
     TDB.deblock_frame(*(_t(a) for a in (y, u, v, bs, intra, feo, qp, qpc)),
                       0, 0, MB_W, MB_H)
     assert all(n == 0 for n in xtt.kernel_launches().values())
+
+
+@pytest.mark.parametrize("fn", ["sad_cost_surface16_lanes",
+                                "sad_cost_surfaces_8x8"])
+@pytest.mark.parametrize("where", ["fenc", "strips"])
+@pytest.mark.parametrize("value", [256, -1])
+def test_sad_dispatchers_refuse_non_pixels(planes, fn, where, value):
+    """K1 / K4 read the low byte of each int32, so their dispatchers refuse
+    any value outside 0..255 on either device; here on the CPU."""
+    fenc = _t(planes["fenc"])
+    strips = TSAD.make_ref_strips(_t(planes["ref4"][:, 0]), TMC.PAD_MC,
+                                  MB_W, MB_H, R)
+    bad = (fenc if where == "fenc" else strips).clone()
+    bad.view(-1)[bad.numel() // 2] = value
+    args = (bad, strips) if where == "fenc" else (fenc, bad)
+    with pytest.raises(ValueError, match="0..255"):
+        getattr(TSAD, fn)(*args, MB_W, MB_H, R)
+    getattr(TSAD, fn)(fenc, strips, MB_W, MB_H, R)      # pixels pass

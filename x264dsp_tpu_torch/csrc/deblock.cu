@@ -40,6 +40,7 @@
 //   then one column each for the 4 horizontal edges, in deblock.c order.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 struct Params {
     const int* bs;
@@ -533,48 +534,112 @@ extern "C" int x264t_deblock_wave_chroma(int* u, int* v, const int* tcc,
 // horizontal edge reads pixels a vertical edge wrote.
 //
 // Bound: bytes (each region and lane read once, each region written once);
-// a launch of one diagonal moves under 2 MB. Design: one warp per MB keeps
-// its three regions in shared memory; threads 0-15 own a luma pixel line
-// each, threads 16-31 a chroma line of u or v, with a block sync between
-// the directions. The caller pads K to a multiple of 16 with zero regions
-// and zero enables, which filter to themselves.
+// a launch of one diagonal (480 regions at 1080p, S = 8) moves under 2 MB,
+// so what a launch costs is its chain of dependent memory latencies. Design:
+// one warp per MB, RW warps per CTA. A warp first brings all of its
+// MB's data into shared memory in one batch of 16-byte cp.async copies
+// (3776 bytes: the 20x20 luma and two 12x12 chroma regions and every lane:
+// tc0y, tcc, and the enables, intra flags, alphas and betas of the 8 luma
+// and 2 x 4 chroma edges), waits once, and then runs the chain on shared
+// memory and registers alone: threads 0-15 own a luma pixel line each,
+// threads 16-31 a chroma line of u or v, a warp barrier between the
+// directions; the regions go back with 16-byte stores. Every per-MB row is
+// a multiple of 16 bytes, so 16-byte aligned bases (the wrapper checks)
+// keep every copy aligned. The caller pads K to a multiple of 16 with zero
+// regions and zero enables, which filter to themselves.
 
-__global__ void __launch_bounds__(32)
-filter_regions_kernel(int* oy, int* oc, const int* regy, const int* regc,
-                      const int* tc0y, const int* tcc, const int* eny,
-                      const int* uiy, const int* enc, const int* uic,
-                      const int* aly, const int* bly, const int* alc,
-                      const int* blc) {
-    __shared__ int sy[20 * 20];
-    __shared__ int sc[2 * 12 * 12];
-    const long long k = blockIdx.x;
-    const int t = threadIdx.x;
-    for (int i = t; i < 400; i += 32) sy[i] = regy[k * 400 + i];
-    for (int i = t; i < 288; i += 32) sc[i] = regc[k * 288 + i];
-    __syncthreads();
-    for (int dir = 0; dir < 2; ++dir) {
-        if (t < 16) {
-            int* px = dir == 0 ? sy + (4 + t) * 20 + 4 : sy + 4 * 20 + 4 + t;
-            const long long e0 = k * 8 + dir * 4;
-            luma_line_lanes(px, dir == 0 ? 1 : 20, true,
-                            tc0y + k * 128 + dir * 64 + t, eny + e0,
-                            uiy + e0, aly + e0, bly + e0);
-        } else {
-            const int ch = (t - 16) >> 3, l = t & 7;
-            int* reg = sc + ch * 144;
-            int* px = dir == 0 ? reg + (4 + l) * 12 + 4 : reg + 4 * 12 + 4 + l;
-            const long long kc = 2 * k + ch;
-            const long long e0 = kc * 4 + dir * 2;
-            chroma_line_lanes(px, dir == 0 ? 1 : 12, true,
-                              tcc + kc * 32 + dir * 16 + l, enc + e0,
-                              uic + e0, alc + e0, blc + e0);
-        }
-        __syncthreads();
-    }
-    for (int i = t; i < 400; i += 32) oy[k * 400 + i] = sy[i];
-    for (int i = t; i < 288; i += 32) oc[k * 288 + i] = sc[i];
+// warps (MBs) per CTA: 1 beat 2, 4 and 8 at 480 regions on the H100
+// (tools/kernel_sweep.py, PERF.md)
+constexpr int RW = 1;
+
+// One MB's regions and lanes in shared memory, in int32 words; every
+// member is a multiple of 4 words, so each starts 16-byte aligned.
+struct RegionMB {
+    int y[400];         // 20 x 20 luma region
+    int c[288];         // 12 x 12 u region, then v
+    int tc0y[128];
+    int tcc[64];        // u slot, then v slot
+    // eny, uiy, aly, bly (8 luma edges), enc, uic, alc, blc (u, then v)
+    int e[8][8];
+};
+enum { EN_Y, UI_Y, AL_Y, BL_Y, EN_C, UI_C, AL_C, BL_C };
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+    const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                 :: "r"(dst), "l"(gmem) : "memory");
 }
 
+// copy n int32 words (a multiple of 4) with the warp's lanes
+__device__ __forceinline__ void warp_copy_in(int* dst, const int* src, int n,
+                                             int lane) {
+    for (int i = 4 * lane; i < n; i += 128) cp_async16(dst + i, src + i);
+}
+
+__device__ __forceinline__ void warp_copy_out(int* __restrict__ dst,
+                                              const int* src, int n,
+                                              int lane) {
+    for (int i = 4 * lane; i < n; i += 128)
+        *reinterpret_cast<int4*>(dst + i) =
+            *reinterpret_cast<const int4*>(src + i);
+}
+
+__global__ void __launch_bounds__(32 * RW)
+filter_regions_kernel(int* __restrict__ oy, int* __restrict__ oc,
+                      const int* __restrict__ regy,
+                      const int* __restrict__ regc,
+                      const int* __restrict__ tc0y,
+                      const int* __restrict__ tcc,
+                      const int* __restrict__ eny,
+                      const int* __restrict__ uiy,
+                      const int* __restrict__ enc,
+                      const int* __restrict__ uic,
+                      const int* __restrict__ aly,
+                      const int* __restrict__ bly,
+                      const int* __restrict__ alc,
+                      const int* __restrict__ blc) {
+    __shared__ __align__(16) RegionMB mbs[RW];
+    const int w = threadIdx.x >> 5, t = threadIdx.x & 31;
+    const long long k = (long long)blockIdx.x * RW + w;
+    RegionMB& m = mbs[w];
+    warp_copy_in(m.y, regy + k * 400, 400, t);
+    warp_copy_in(m.c, regc + k * 288, 288, t);
+    warp_copy_in(m.tc0y, tc0y + k * 128, 128, t);
+    warp_copy_in(m.tcc, tcc + k * 64, 64, t);
+    if (t < 16) {       // the eight 8-word edge rows, two copies each
+        const int i = t >> 1, h = 4 * (t & 1);
+        const int* src = i == EN_Y ? eny : i == UI_Y ? uiy : i == AL_Y ? aly
+                         : i == BL_Y ? bly : i == EN_C ? enc : i == UI_C
+                         ? uic : i == AL_C ? alc : blc;
+        cp_async16(m.e[i] + h, src + k * 8 + h);
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncwarp();
+    for (int dir = 0; dir < 2; ++dir) {
+        if (t < 16) {
+            int* px = dir == 0 ? m.y + (4 + t) * 20 + 4 : m.y + 4 * 20 + 4 + t;
+            const int e0 = dir * 4;
+            luma_line_lanes(px, dir == 0 ? 1 : 20, true,
+                            m.tc0y + dir * 64 + t, m.e[EN_Y] + e0,
+                            m.e[UI_Y] + e0, m.e[AL_Y] + e0, m.e[BL_Y] + e0);
+        } else {
+            const int ch = (t - 16) >> 3, l = t & 7;
+            int* reg = m.c + ch * 144;
+            int* px = dir == 0 ? reg + (4 + l) * 12 + 4 : reg + 4 * 12 + 4 + l;
+            const int e0 = ch * 4 + dir * 2;
+            chroma_line_lanes(px, dir == 0 ? 1 : 12, true,
+                              m.tcc + ch * 32 + dir * 16 + l, m.e[EN_C] + e0,
+                              m.e[UI_C] + e0, m.e[AL_C] + e0,
+                              m.e[BL_C] + e0);
+        }
+        __syncwarp();
+    }
+    warp_copy_out(oy + k * 400, m.y, 400, t);
+    warp_copy_out(oc + k * 288, m.c, 288, t);
+}
+
+// K a multiple of RW and every pointer 16-byte aligned (the wrapper checks
+// both: K is a multiple of 16, and the tensors' bases are aligned).
 extern "C" int x264t_filter_regions(int* oy, int* oc, const int* regy,
                                     const int* regc, const int* tc0y,
                                     const int* tcc, const int* eny,
@@ -583,7 +648,13 @@ extern "C" int x264t_filter_regions(int* oy, int* oc, const int* regy,
                                     const int* bly, const int* alc,
                                     const int* blc, int K, void* stream) {
     if (K <= 0) return 0;
-    filter_regions_kernel<<<K, 32, 0, (cudaStream_t)stream>>>(
+    const void* ptrs[14] = {oy, oc, regy, regc, tc0y, tcc, eny, uiy, enc,
+                            uic, aly, bly, alc, blc};
+    for (const void* q : ptrs)
+        if (reinterpret_cast<uintptr_t>(q) % 16 != 0)
+            return (int)cudaErrorInvalidValue;
+    if (K % RW != 0) return (int)cudaErrorInvalidValue;
+    filter_regions_kernel<<<K / RW, 32 * RW, 0, (cudaStream_t)stream>>>(
         oy, oc, regy, regc, tc0y, tcc, eny, uiy, enc, uic, aly, bly, alc,
         blc);
     return (int)cudaGetLastError();

@@ -23,9 +23,19 @@
 // no 64-bit division. 1080p, S = 8: 480 CTAs, 0.38 GB read and 0.82 GB
 // written, a floor of about 0.36 ms.
 //
-// K2b: a grid-stride loop, one output byte per thread step, consecutive
-// threads on consecutive output bytes (coalesced writes; the reads of a
-// window row are consecutive too).
+// K2b: K2a's ring copy for the 32 x 32 chroma windows (window of MB (y, x)
+// at rows and columns 8 y + 5 and 8 x + 5 of the padded plane). One CTA per
+// (stream, column group of G = 8 MBs, band of MB rows) keeps a ring of 32
+// source rows x (8 G + 32) bytes; each MB row adds 8 source rows (loaded
+// into registers while the current windows are written), each window is
+// 64 16-byte streaming stores. The window's first column, 8 x + 5, is
+// 20 bytes into the int32 row, so the ring is loaded from the aligned
+// column 8 x0 + 4 and every output word is a byte funnel (PRMT) of two
+// neighbouring ring words. K2a's grid would give 1080p S = 8 only 120
+// CTAs, fewer than the 132 SMs: the MB rows are cut into bands, each of
+// which loads its first 32 rows anew (1080p S = 8: 5 bands of <= 14 rows,
+// 600 CTAs, the source read about 1.2 x 1.4 times). 1080p S = 8: 18.3 MB
+// read and 66.8 MB written, a floor of 0.025 ms.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -40,6 +50,17 @@ constexpr int RING_W = 16 * G + 40;         // bytes per ring row
 constexpr int NT = 256;                     // threads per CTA
 constexpr int CHUNKS = WIN_L * WIN_L / 16;  // 16-byte stores per window
 constexpr int PF = (16 * RING_W / 4 + NT - 1) / NT;   // int4 per thread
+// K2b
+constexpr int M_CHROMA = 11;                // ops/mcgather.py M_CHROMA
+constexpr int WIN_C = 8 + 2 * M_CHROMA + 2; // 32
+constexpr int ORIGIN_C = PAD_MC / 2 - M_CHROMA;   // 5
+constexpr int RING_C = 8 * G + 32;          // bytes per ring row
+constexpr int NV_C = 2 * G + 7;             // int4 per source row, at most
+constexpr int INIT_C = (WIN_C * NV_C + NT - 1) / NT;  // int4 per thread
+constexpr int PF_C = (8 * NV_C + NT - 1) / NT;
+// CTAs the band split aims at, 4 per SM; G = 8 and 528 were within 2% of
+// the best variant at 1080p S = 8 (tools/kernel_sweep.py, PERF.md)
+constexpr int CTAS_C = 528;
 }
 
 __device__ __forceinline__ uint32_t pack_u8(int4 q) {
@@ -118,28 +139,89 @@ luma_windows_kernel(const int* __restrict__ ref4, uint8_t* __restrict__ out,
     }
 }
 
-__global__ void chroma_windows_kernel(const int* __restrict__ refc,
-                                      uint8_t* __restrict__ out,
-                                      long long total, int mb_h, int mb_w,
-                                      int Hc, int Wc, int win, int origin) {
-    const long long step = (long long)gridDim.x * blockDim.x;
-    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-         i < total; i += step) {
-        long long t = i;
-        const int c = (int)(t % win); t /= win;
-        const int r = (int)(t % win); t /= win;
-        const int mbx = (int)(t % mb_w); t /= mb_w;
-        const int mby = (int)(t % mb_h); t /= mb_h;
-        const long long s = t;
-        const int y = 8 * mby + origin + r;
-        const int x = 8 * mbx + origin + c;
-        out[i] = (uint8_t)refc[(s * Hc + y) * (long long)Wc + x];
+// grid (column groups, bands of `band` MB rows, S). Ring slot of source
+// row R (counted from the band's first window row) is R % WIN_C; ring byte
+// b of a row is column 8 x0 + 4 + b of the plane.
+__global__ void __launch_bounds__(NT)
+chroma_windows_kernel(const int* __restrict__ refc, uint8_t* __restrict__ out,
+                      int mb_h, int mb_w, int Hc, int Wc, int band) {
+    __shared__ __align__(16) uint8_t ring[WIN_C * RING_C];
+    const int x0 = G * blockIdx.x, y0 = band * blockIdx.y, s = blockIdx.z;
+    const int gw = min(G, mb_w - x0);
+    const int nb = min(band, mb_h - y0);    // MB rows in this band
+    const int nv = 2 * gw + 7;              // int4 per source row
+    const int* src = refc + ((long long)s * Hc + 8 * y0 + ORIGIN_C) * Wc
+                     + 8 * x0 + ORIGIN_C - 1;
+    uint8_t* dst = out + (((long long)s * mb_h + y0) * mb_w + x0)
+                         * (WIN_C * WIN_C);
+    {   // the band's first 32 source rows, all loads in flight at once
+        int4 q[INIT_C];
+#pragma unroll
+        for (int j = 0; j < INIT_C; ++j) {
+            const int i = threadIdx.x + NT * j;
+            if (i < WIN_C * nv) {
+                const int r = i / nv, c = i - r * nv;
+                q[j] = __ldg(reinterpret_cast<const int4*>(
+                    src + (long long)r * Wc) + c);
+            }
+        }
+#pragma unroll
+        for (int j = 0; j < INIT_C; ++j) {
+            const int i = threadIdx.x + NT * j;
+            if (i < WIN_C * nv) {
+                const int r = i / nv, c = i - r * nv;
+                *reinterpret_cast<uint32_t*>(ring + r * RING_C + 4 * c) =
+                    pack_u8(q[j]);
+            }
+        }
     }
-}
-
-static int grid_for(long long total) {
-    long long blocks = (total + 255) / 256;
-    return (int)(blocks < 132 * 32 ? blocks : 132 * 32);
+    __syncthreads();
+    for (int y = 0; y < nb; ++y) {
+        const int base = 8 * y % WIN_C;     // ring slot of window row 0
+        // the 8 source rows MB row y + 1 adds: R = 8 y + 32 + r
+        const bool more = y + 1 < nb;
+        int4 pf[PF_C];
+#pragma unroll
+        for (int j = 0; j < PF_C; ++j) {
+            const int i = threadIdx.x + NT * j;
+            if (more && i < 8 * nv) {
+                const int r = i / nv, c = i - r * nv;
+                pf[j] = __ldg(reinterpret_cast<const int4*>(
+                    src + (long long)(8 * y + WIN_C + r) * Wc) + c);
+            }
+        }
+        // the windows of MB row y: 16-byte chunk j of window m is row j / 2,
+        // bytes 16 (j % 2) .. + 15, i.e. ring bytes 8 m + 16 (j % 2) + 1 ..
+        for (int i = threadIdx.x; i < gw * 64; i += NT) {
+            const int m = i >> 6, j = i & 63;
+            const uint8_t* row = ring + ((base + (j >> 1)) & (WIN_C - 1))
+                                 * RING_C + 8 * m + 16 * (j & 1);
+            const uint2 a = *reinterpret_cast<const uint2*>(row);
+            const uint2 b = *reinterpret_cast<const uint2*>(row + 8);
+            const uint32_t c = *reinterpret_cast<const uint32_t*>(row + 16);
+            __stcs(reinterpret_cast<uint4*>(
+                       dst + ((long long)y * mb_w + m) * (WIN_C * WIN_C))
+                       + j,
+                   make_uint4(__byte_perm(a.x, a.y, 0x4321),
+                              __byte_perm(a.y, b.x, 0x4321),
+                              __byte_perm(b.x, b.y, 0x4321),
+                              __byte_perm(b.y, c, 0x4321)));
+        }
+        __syncthreads();
+        if (more) {
+#pragma unroll
+            for (int j = 0; j < PF_C; ++j) {
+                const int i = threadIdx.x + NT * j;
+                if (i < 8 * nv) {
+                    const int r = i / nv, c = i - r * nv;
+                    *reinterpret_cast<uint32_t*>(
+                        ring + ((base + r) & (WIN_C - 1)) * RING_C + 4 * c) =
+                        pack_u8(pf[j]);
+                }
+            }
+        }
+        __syncthreads();
+    }
 }
 
 // margin and pad must be M_LUMA and PAD_MC, Wp a multiple of 4 and ref4
@@ -157,13 +239,22 @@ extern "C" int x264t_luma_windows(const int* ref4, uint8_t* out, int S,
     return (int)cudaGetLastError();
 }
 
+// margin and pad must be M_CHROMA and PAD_MC / 2, Wc a multiple of 4 and
+// refc 16-byte aligned (the wrapper checks; 16-byte loads). Bands of MB
+// rows are cut so that the grid has about CTAS_C CTAs.
 extern "C" int x264t_chroma_windows(const int* refc, uint8_t* out, int S,
                                     int mb_h, int mb_w, int Hc, int Wc,
                                     int margin, int pad, void* stream) {
-    const int win = 8 + 2 * margin + 2;
-    const long long total = (long long)S * mb_h * mb_w * win * win;
-    chroma_windows_kernel<<<grid_for(total), 256, 0,
-                            (cudaStream_t)stream>>>(
-        refc, out, total, mb_h, mb_w, Hc, Wc, win, pad - margin);
+    if (margin != M_CHROMA || pad != PAD_MC / 2 || Wc % 4 != 0
+        || reinterpret_cast<uintptr_t>(refc) % 16 != 0
+        || reinterpret_cast<uintptr_t>(out) % 16 != 0)
+        return (int)cudaErrorInvalidValue;
+    const int groups = (mb_w + G - 1) / G;
+    const int want = (CTAS_C + groups * S - 1) / (groups * S);
+    const int n_bands = want < mb_h ? want : mb_h;
+    const int band = (mb_h + n_bands - 1) / n_bands;
+    dim3 grid(groups, (mb_h + band - 1) / band, S);
+    chroma_windows_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(
+        refc, out, mb_h, mb_w, Hc, Wc, band);
     return (int)cudaGetLastError();
 }

@@ -31,8 +31,10 @@ K6 replaces ops/pallas/deblock_filter.py::filter_regions. K3 and K5 are
 bound by the latency of the 254 dependent MB steps at 1080p: K3 pipelines
 the MB rows of all streams across the SMs (one CTA per row, progress
 counters between rows), K5 runs one block per stream that walks every
-diagonal in global memory (see the source notes in the .cu); none keeps
-the TPU's skewed lane layout, superwindows or one-hot matmuls.
+diagonal in global memory; K6 moves under 2 MB a launch, so one warp per
+MB stages its regions and lanes in shared memory with 16-byte copies
+before the chain (see the source notes in the .cu). None keeps the TPU's
+skewed lane layout, superwindows or one-hot matmuls.
 """
 
 from __future__ import annotations
@@ -491,16 +493,22 @@ def _region_shapes(K: int):
 def filter_regions_cuda(regy, regc, tc0y, tcc, eny, uiy, enc, uic,
                         aly, bly, alc, blc):
     """Launch kernel K6 (arguments as filter_regions_plain, int32 CUDA
-    tensors, K a multiple of KB). Returns new (regy, regc)."""
+    tensors with 16-byte aligned bases, K a multiple of KB). Returns new
+    (regy, regc)."""
     K = regy.shape[0]
     if K % KB:
         raise ValueError(f"filter_regions: K = {K} is no multiple of {KB}")
     args = (regy, regc, tc0y, tcc, eny, uiy, enc, uic, aly, bly, alc, blc)
+    ptrs = []
     for t, (name, shape) in zip(args, _region_shapes(K)):
         _build.require_cuda(t, torch.int32, shape, name)
+        ptrs.append(t.data_ptr())
+        if ptrs[-1] % 16:
+            raise ValueError(f"{name}: the kernel's 16-byte copies need a "
+                             "16-byte aligned tensor")
     oy, oc = torch.empty_like(regy), torch.empty_like(regc)
     code = _build.lib().x264t_filter_regions(
-        oy.data_ptr(), oc.data_ptr(), *(t.data_ptr() for t in args), K,
+        oy.data_ptr(), oc.data_ptr(), *ptrs, K,
         _build.stream_ptr(regy.device))
     _build.check(code, "x264t_filter_regions")
     launches["filter_regions"] += 1

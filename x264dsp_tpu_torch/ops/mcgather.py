@@ -6,8 +6,8 @@ the padded hpel planes (kernels K2a / K2b, ``csrc/windows.cu``, on a
 CUDA tensor; ``*_plain`` on a CPU tensor). The windows are uint8: pixels
 are <= 255, so they equal the TPU path's bf16 windows at half the bytes.
 K2 replaces x264dsp_tpu/ops/pallas/windows.py::luma_windows_pallas and
-::chroma_windows_pallas; on the H100 it is a bandwidth-bound copy (K2a
-through a ring of source rows in shared memory, csrc/windows.cu).
+::chroma_windows_pallas; on the H100 it is a bandwidth-bound copy (K2a and
+K2b each through a ring of source rows in shared memory, csrc/windows.cu).
 
 The MC functions read blocks out of the windows with direct indexed
 loads (``torch.gather``) where the TPU path multiplies by one-hot bf16
@@ -82,6 +82,9 @@ def chroma_windows_cuda(refc, mb_w: int, mb_h: int):
     _build.require_cuda(refc, torch.int32, (S, Hc, Wc), "refc")
     if Hc < 8 * mb_h + MC.PAD_MC or Wc < 8 * mb_w + MC.PAD_MC:
         raise ValueError("refc smaller than the padded frame")
+    if refc.data_ptr() % 16 or Wc % 4:
+        raise ValueError("refc: the kernel's 16-byte loads need a 16-byte "
+                         "aligned tensor whose width is a multiple of 4")
     out = torch.empty((S, mb_h * mb_w, WIN_C, WIN_C), dtype=torch.uint8,
                       device=refc.device)
     code = _build.lib().x264t_chroma_windows(

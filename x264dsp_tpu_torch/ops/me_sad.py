@@ -16,7 +16,10 @@ bf16 dot (see the source note in the .cu).
 
 Precondition of the kernels: every value of ``fenc_y`` and ``strips`` is
 a pixel, 0..255 (the kernels use the low byte of each int32). The
-wrappers do not scan the inputs for it; both callers pass pixel planes.
+dispatchers ``sad_cost_surface16_lanes`` / ``sad_cost_surfaces_8x8``
+check it on either device (``check_pixels``: one ``aminmax`` per input
+and one host sync) and raise on other values, so that the CPU and the
+card refuse the same inputs; the ``*_cuda`` launchers do not scan.
 """
 
 from __future__ import annotations
@@ -45,6 +48,15 @@ def _check_args(fenc_y, strips, mb_w: int, mb_h: int, R: int):
                         "fenc_y")
     _build.require_cuda(strips, torch.int32,
                         (S, mb_h, 16 + 2 * R, 16 * mb_w + 2 * R), "strips")
+
+
+def check_pixels(fenc_y, strips) -> None:
+    """Raise ValueError unless every value of both inputs is 0..255."""
+    lo_hi = torch.stack([*torch.aminmax(fenc_y), *torch.aminmax(strips)])
+    lo_f, hi_f, lo_s, hi_s = lo_hi.tolist()
+    if min(lo_f, lo_s) < 0 or max(hi_f, hi_s) > 255:
+        raise ValueError("SAD surfaces: fenc_y and strips must hold pixels "
+                         f"0..255, got {min(lo_f, lo_s)}..{max(hi_f, hi_s)}")
 
 
 def sad_cost_surface16_lanes_plain(fenc_y, strips, mb_w: int, mb_h: int,
@@ -84,6 +96,7 @@ def sad_cost_surface16_lanes_cuda(fenc_y, strips, mb_w: int, mb_h: int,
 
 
 def sad_cost_surface16_lanes(fenc_y, strips, mb_w: int, mb_h: int, R: int):
+    check_pixels(fenc_y, strips)
     fn = (sad_cost_surface16_lanes_cuda if fenc_y.is_cuda
           else sad_cost_surface16_lanes_plain)
     return fn(fenc_y, strips, mb_w, mb_h, R)
@@ -129,6 +142,7 @@ def sad_cost_surfaces_8x8_cuda(fenc_y, strips, mb_w: int, mb_h: int,
 
 
 def sad_cost_surfaces_8x8(fenc_y, strips, mb_w: int, mb_h: int, R: int):
+    check_pixels(fenc_y, strips)
     fn = (sad_cost_surfaces_8x8_cuda if fenc_y.is_cuda
           else sad_cost_surfaces_8x8_plain)
     return fn(fenc_y, strips, mb_w, mb_h, R)

@@ -1,6 +1,7 @@
-"""Time the redesigned kernels of one checkout on one GPU, at the main
+"""Time the hand-written kernels of one checkout on one GPU, at the main
 path's 1080p 8-stream shapes: K1 (16x16 SAD surface), K4 (8x8-quadrant
-SAD surfaces), K3 (whole-frame deblock) and K2a (luma MC windows):
+SAD surfaces), K3 (whole-frame deblock), K2a / K2b (luma / chroma MC
+windows), K5a / K5b (wave deblock) and K6 (region filter chain):
 
     python x264dsp_tpu_torch/tools/kernel_ab.py --root DIR [--rate]
         [--ptxas] [--sass]
@@ -13,21 +14,31 @@ one call on one card. The script is run as a file, not as a module, so
 that it imports DIR's package and not its own.
 
 Prints the card's name and power limit, then one JSON line: mean ms per
-launch over CUDA events (after a warm-up) for K1 and K4 (R = 16), for K3
-on a P-type and an all-intra frame batch and for K2a; K3's us per
-critical-path MB step (ms / (mb_w + 2 mb_h - 2)) and its us per MB on one
-MB row of the P-type batch (steps without handoffs) and on one MB column
-(each step after a handoff from the row above); a digest of each
-kernel's output, which must be equal across checkouts; K1's and K4's
-bounds: bytes over 3.35 TB/s, and their 4.55 G packed sums at the
-instruction's peak (``sad_rate.PEAK_SUMS_S``, the probe module beside
-this script). With --rate, also the packed-SAD rate that the probe
-reaches on the card (its build needs ``_build.compile_source``, so DIR
-must be a checkout that has it). With --ptxas, also the registers,
+call over CUDA events (after a warm-up; where a call's host side, the
+wrapper's checks and the launch, takes longer than the kernel, this is
+the host's time) and the kernel's own device ms per launch from
+torch.profiler, for K1 and K4 (R = 16), for K3
+on a P-type and an all-intra frame batch, for K2a and K2b, for K5a and
+K5b on the P-type batch's lanes and for K6 on the longest diagonal of
+that batch (480 regions, gathered as chip_smoke.py gathers them); K3's
+us per critical-path MB step (ms / (mb_w + 2 mb_h - 2)) and its us per
+MB on one MB row of the P-type batch (steps without handoffs) and on one
+MB column (each step after a handoff from the row above); a digest of
+each kernel's output, which must be equal across checkouts; bounds:
+bytes over 3.35 TB/s for every kernel, and for K1 / K4 also their 4.55 G
+packed sums at the instruction's peak (``sad_rate.PEAK_SUMS_S``, the
+probe module beside this script). Where DIR's ``ops/me_sad`` has the
+pixel-range check of the SAD dispatchers (``check_pixels``), also its
+host wall per call on the 1080p inputs (it ends in a host sync), beside
+that of the same test as ``torch._assert_async`` (no sync; enqueue wall,
+and its device time). With --rate, also the packed-SAD rate that the
+probe reaches on the card (its build needs ``_build.compile_source``, so
+DIR must be a checkout that has it). With --ptxas, also the registers,
 stack, shared memory and spills that ``nvcc -Xptxas -v`` reports for the
-SAD, windows and deblock sources; with --sass, each SAD kernel's SASS
-opcode counts (``cuobjdump -sass``): the whole function, its largest
-loop body and its instructions per packed sum.
+SAD, windows (K2a, K2b) and deblock (K3, K5a, K5b, K6) sources; with
+--sass, each SAD kernel's SASS opcode counts (``cuobjdump -sass``): the
+whole function, its largest loop body and its instructions per packed
+sum.
 """
 
 from __future__ import annotations
@@ -67,8 +78,36 @@ def time_cuda(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, kernel: str, reps: int) -> float:
+    """Mean device time per launch of the CUDA kernel named `kernel` over
+    `reps` calls of fn, from torch.profiler's CUDA activity: the kernel's
+    own time, without the host time between launches that CUDA events
+    over back-to-back calls include when a call's host side is the
+    longer. The profiler may miss a launch at the start of its window,
+    so the mean is over the launches it recorded (at least half)."""
+    import re
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    pat = re.compile(rf"\b{kernel}\b")
+    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+          and pat.search(e.name)]
+    if not reps / 2 <= len(ev) <= reps:
+        sys.exit(f"profiler: {len(ev)} launches of {kernel} in {reps} "
+                 "calls")
+    return sum(e.time_range.elapsed_us() for e in ev) / len(ev) / 1e3
+
+
 def ptxas(root: Path, build) -> list:
-    """`nvcc -Xptxas -v` on the K1/K4, K2 and K3 sources: the kernel
+    """`nvcc -Xptxas -v` on the SAD, windows and deblock sources: the kernel
     lines (the SAD kernels' shared memory is dynamic: ptxas shows 0)."""
     out = []
     for name in ("me_sad.cu", "deblock.cu", "windows.cu"):
@@ -115,6 +154,39 @@ def sad_sass(build, probe) -> dict:
                      "loop_sass": len(body),
                      "loop_opcodes": probe.histogram(body),
                      "sass_per_sum": len(insns) / sums if sums else None}
+    return out
+
+
+def range_check(me_sad, t, rng, mb_w: int, mb_h: int, reps: int) -> dict:
+    """The SAD dispatchers' pixel-range check on the main path's 1080p
+    inputs (fenc and the R = 16 strips): host wall per call of
+    check_pixels (aminmax of both, one host sync), and of the same test
+    as torch._assert_async (enqueue only, no sync); and each one's CUDA
+    event time per call (for check_pixels, whose every call syncs, that is
+    its wall again; for the other, its device time)."""
+    import time
+
+    import torch
+    fenc = t(rng.integers(0, 256, (S, H, W)))
+    strips = t(rng.integers(0, 256, (S, mb_h, 16 + 2 * R, W + 2 * R)))
+
+    def asserted():
+        lo_hi = torch.stack([*torch.aminmax(fenc), *torch.aminmax(strips)])
+        torch._assert_async((lo_hi[::2].min() >= 0)
+                            & (lo_hi[1::2].max() <= 255))
+
+    out = {}
+    for name, fn in (("check_pixels", lambda: me_sad.check_pixels(
+            fenc, strips)), ("assert_async", asserted)):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        out[f"range_{name}_host_ms"] = \
+            (time.perf_counter() - t0) / reps * 1e3
+        torch.cuda.synchronize()
+        out[f"range_{name}_events_ms"] = time_cuda(fn, reps)
     return out
 
 
@@ -170,6 +242,15 @@ def main(argv=None) -> None:
               mb_h)
     steps = mb_w + 2 * mb_h - 2
     rec = {"root": str(args.root), "card": smi, "shape": [S, H, W]}
+
+    def timed(name: str, fn) -> float:
+        """CUDA-event ms per call into rec[name_ms], the kernel's device
+        ms (profiler) into rec[name_device_ms]; returns the former."""
+        rec[f"{name}_ms"] = time_cuda(fn, args.reps)
+        rec[f"{name}_device_ms"] = device_ms(
+            fn, name.split("[")[0] + "_kernel", args.reps)
+        return rec[f"{name}_ms"]
+
     # K1 / K4 at R = 16: random source pixels against the strips of recon
     fenc = t(rng.integers(0, 256, (S, H, W)))
     strips = me_sad.make_ref_strips(ref4[:, 0], MC.PAD_MC, mb_w, mb_h, R)
@@ -184,16 +265,14 @@ def main(argv=None) -> None:
              S * mb_h * mb_w * n * n),
             ("sad_surfaces_8x8", me_sad.sad_cost_surfaces_8x8_cuda,
              4 * S * mb_h * mb_w * n * n)):
-        rec[f"{name}_ms"] = time_cuda(
-            lambda f=fn: f(fenc, strips, mb_w, mb_h, R), args.reps)
+        timed(name, lambda f=fn: f(fenc, strips, mb_w, mb_h, R))
         rec[f"{name}_digest"] = digest(fn(fenc, strips, mb_w, mb_h, R))
         rec[f"{name}_bound_bytes_ms"] = \
             (in_bytes + 4 * out_ints) / HBM_BYTES_S * 1e3
         rec[f"{name}_bound_ops_ms"] = sums / probe.PEAK_SUMS_S * 1e3
     del fenc, strips
     for tag, a in (("P", p_args), ("I", i_args)):
-        ms = time_cuda(lambda: DB.deblock_frame_cuda(*a), args.reps)
-        rec[f"deblock[{tag}]_ms"] = ms
+        ms = timed(f"deblock[{tag}]", lambda: DB.deblock_frame_cuda(*a))
         rec[f"deblock[{tag}]_us_per_step"] = 1e3 * ms / steps
         rec[f"deblock[{tag}]_digest"] = digest(*DB.deblock_frame_cuda(*a))
     # where K3's time goes: one MB row (mb_w steps, no handoff) and one MB
@@ -206,10 +285,54 @@ def main(argv=None) -> None:
         ms = time_cuda(lambda: DB.deblock_frame_cuda(*a), args.reps)
         rec[f"deblock[P]_one_{label}_{cw}x{ch}_us_per_mb"] = \
             1e3 * ms / (cw * ch)
-    rec["luma_windows_ms"] = time_cuda(
-        lambda: MG.luma_windows_cuda(ref4, mb_w, mb_h), args.reps)
+    timed("luma_windows", lambda: MG.luma_windows_cuda(ref4, mb_w, mb_h))
     rec["luma_windows_digest"] = digest(MG.luma_windows_cuda(ref4, mb_w,
                                                              mb_h))
+    del ref4
+    # K2b on one padded chroma plane per stream
+    refc = MC.pad_chroma(t(rng.integers(0, 256, (S, H // 2, W // 2)),
+                           torch.uint8)).contiguous()
+    timed("chroma_windows",
+          lambda: MG.chroma_windows_cuda(refc, mb_w, mb_h))
+    out = MG.chroma_windows_cuda(refc, mb_w, mb_h)
+    rec["chroma_windows_digest"] = digest(out)
+    rec["chroma_windows_bound_bytes_ms"] = \
+        (refc.numel() * 4 + out.numel()) / HBM_BYTES_S * 1e3
+    del refc, out
+    # K5a / K5b from the P-type batch's lanes
+    luma_l, chroma_l = DB.wave_lanes(*p_args[3:])
+    for name, fn, a in (
+            ("deblock_wave_luma", DB.deblock_wave_luma_cuda,
+             (y, *luma_l, mb_w, mb_h)),
+            ("deblock_wave_chroma", DB.deblock_wave_chroma_cuda,
+             (u, v, *chroma_l, mb_w, mb_h))):
+        timed(name, lambda f=fn, a=a: f(*a))
+        rec[f"{name}_digest"] = digest(*((fn(*a),) if name.endswith("luma")
+                                         else fn(*a)))
+    # K6 on the longest diagonal of all streams (S x 60 = 480 regions)
+    ys, xs = (torch.as_tensor(a, device=dev)
+              for a in DB.diag_slots(mb_w, mb_h))
+    d = int((ys >= 0).sum(1).argmax())
+    k = int((ys[d] >= 0).sum())
+    F = torch.nn.functional
+    ry, rx = DB.region_index(ys[d, :k], xs[d, :k], 16, 20, dev)
+    cy, cx = DB.region_index(ys[d, :k], xs[d, :k], 8, 12, dev)
+    regy = F.pad(y, (4, 4, 4, 4))[:, ry, rx].reshape(S * k, 20, 20)
+    regc = F.pad(torch.stack([u, v], 1), (4, 4, 4, 4))[:, :, cy, cx] \
+        .transpose(1, 2).reshape(2 * S * k, 12, 12).contiguous()
+    ly = [x[:, d, :k].reshape(S * k, -1).contiguous() for x in luma_l]
+    lc = [x[:, d, :2 * k].reshape(2 * S * k, -1).contiguous()
+          for x in chroma_l]
+    regs = (regy, regc, ly[0], lc[0], ly[1], ly[2], lc[1], lc[2], ly[3],
+            ly[4], lc[3], lc[4])
+    rec["filter_regions_regions"] = S * k
+    timed("filter_regions", lambda: DB.filter_regions_cuda(*regs))
+    rec["filter_regions_digest"] = digest(*DB.filter_regions_cuda(*regs))
+    rec["filter_regions_bound_bytes_ms"] = \
+        (sum(x.numel() for x in regs) + regy.numel() + regc.numel()) * 4 \
+        / HBM_BYTES_S * 1e3
+    if hasattr(me_sad, "check_pixels"):
+        rec.update(range_check(me_sad, t, rng, mb_w, mb_h, args.reps))
     if args.ptxas:
         for line in ptxas(root, _build):
             print(line)
