@@ -15,9 +15,10 @@ Phases (any failure exits non-zero):
      packed four-byte SADs at the int32 peak, beside the rate that the
      probe x264dsp_tpu_torch/tools/sad_rate.cu measures in this run) and,
      where one PyTorch call computes the same function, that call's time
-     (library_ms); K3 also in us per critical-path MB step (254 at
-     1080p); the wave and region deblock routes against K3 on the same
-     frame;
+     (library_ms); K3, K5a and K5b also in us per critical-path MB step
+     (254 at 1080p), with the registers, stack and spills that ptxas
+     reports for them and K6; the wave and region deblock routes against
+     K3 on the same frame;
   3. the BatchEncoder on the GPU against the same on the CPU (both pack
      CAVLC with the device packer): the main path on a 64x48 clip and
      faster-1ref (HEX, subme 4, partitions) on a 64x64 split-motion clip
@@ -131,8 +132,20 @@ def kernel_checks():
     from x264dsp_tpu_torch.ops import mc as MC
     from x264dsp_tpu_torch.ops import mcgather as MG
     from x264dsp_tpu_torch.ops import me_sad
-    from x264dsp_tpu_torch.tools.kernel_ab import device_ms
+    from x264dsp_tpu_torch import _build
+    from x264dsp_tpu_torch.tools.kernel_ab import (DEBLOCK_KERNELS,
+                                                   device_ms, ptxas,
+                                                   ptxas_usage)
     dev = torch.device("cuda")
+    usage = ptxas_usage(ptxas(ROOT, _build, ("deblock.cu",)),
+                        DEBLOCK_KERNELS)
+    for kname in DEBLOCK_KERNELS:
+        use = usage.get(kname)
+        if not use:
+            fail(f"ptxas reported nothing for {kname}")
+        print(f"ptxas {kname}: {use['registers']} registers, "
+              f"{use['stack']} bytes stack, {use['spill_stores']} bytes "
+              f"spill stores, {use['spill_loads']} bytes spill loads")
     rng = np.random.default_rng(2024)
     mb_w, mb_h = W // 16, H // 16
     S = S_MAIN
@@ -300,9 +313,12 @@ def kernel_checks():
         plain_ms = time_cuda(plain, preps) if preps else once_ms
         library_ms = time_cuda(lib, reps) if lib is not None else None
         bound_ms, bound_by = bound(*work)
-        # K3 is bound by its critical path: mb_w + 2 mb_h - 2 MB steps
+        # K3, K5a and K5b are bound by their critical path: mb_w + 2 mb_h
+        # - 2 MB steps
         per_step = (f"  {1e3 * ms / (mb_w + 2 * mb_h - 2):.3f} us per "
-                    f"critical-path step" if name.startswith("deblock[")
+                    f"critical-path step (device "
+                    f"{1e3 * dev_ms / (mb_w + 2 * mb_h - 2):.3f})"
+                    if name.startswith("deblock")
                     else (f"  (at the probe's rate {probe_ms:.3f} ms; "
                           f"int32 formulation {int32_ms:.3f} ms)")
                     if name.startswith("sad_") else "")
@@ -318,6 +334,8 @@ def kernel_checks():
                         device_ms=dev_ms, plain_ms=plain_ms,
                         bound_ms=bound_ms,
                         bound_by=bound_by, library_ms=library_ms))
+        if src.endswith("deblock.cu"):
+            rec[-1]["ptxas"] = usage[name.split("[")[0] + "_kernel"]
 
     # the three routes of deblock_frame on the same planes and grids:
     # lanes + K5a + K5b, and one gather + K6 + scatter per diagonal,

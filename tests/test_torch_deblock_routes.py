@@ -20,9 +20,13 @@ import jax.numpy as jnp
 from x264dsp_tpu.ops import deblock as JDB
 from x264dsp_tpu.ops import golden as G
 from x264dsp_tpu.ops.pallas.deblock_filter import filter_regions
+from x264dsp_tpu.ops.pallas.deblock_wave import (deblock_wave_chroma,
+                                                 deblock_wave_luma)
 from x264dsp_tpu.ops.tables import CHROMA_QP_TABLE
 import x264dsp_tpu_torch as xtt
 from x264dsp_tpu_torch.ops import deblock as TDB
+from torch_jaxref import light_xla
+from torch_lanes import random_lanes
 
 S = 2
 ARG_NAMES = ("y", "u", "v", "bs", "intra", "feo", "qp", "qpc")
@@ -144,6 +148,42 @@ def test_filter_regions_plain_matches_pallas(kind):
     for g, w, src in zip(got, want, (regy, regc)):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
         assert (g.numpy() != src).any()
+
+
+def test_wave_plain_matches_pallas_on_random_lanes():
+    """K5a / K5b's plain versions on random lanes with every edge enabled,
+    the frame-border edges too (tc0 -1..25, alpha 0..255, beta 0..18,
+    random intra flags), against deblock_wave_luma / _chroma in interpret
+    mode: pixels outside the frame read as 0 at every MB, and what a
+    border edge writes there is never read again. The same draws with the
+    border edges off give other pixels on the left and top border, so the
+    border edges did filter."""
+    mb_w, mb_h = 3, 2
+    case = _case(mb_w, mb_h, seed=17, all_intra=False)
+    rng = np.random.default_rng(17)
+    lanes = random_lanes(rng, S, mb_w, mb_h)
+    inner = random_lanes(np.random.default_rng(17), S, mb_w, mb_h,
+                         border=False)
+    y, u, v = _args(case)[:3]
+
+    def port(ll, cl):
+        return (TDB.deblock_wave_luma(y, *map(_t, ll), mb_w, mb_h),
+                *TDB.deblock_wave_chroma(u, v, *map(_t, cl), mb_w, mb_h))
+    got, got_inner = port(*lanes), port(*inner)
+    with light_xla():
+        want = (deblock_wave_luma(jnp.asarray(case["y"]),
+                                  *map(jnp.asarray, lanes[0]), mb_w=mb_w,
+                                  mb_h=mb_h, interpret=True),
+                *deblock_wave_chroma(jnp.asarray(case["u"]),
+                                     jnp.asarray(case["v"]),
+                                     *map(jnp.asarray, lanes[1]),
+                                     mb_w=mb_w, mb_h=mb_h, interpret=True))
+    for g, gi, w, name in zip(got, got_inner, want, "yuv"):
+        g, gi = g.numpy(), gi.numpy()
+        np.testing.assert_array_equal(g, np.asarray(w), err_msg=name)
+        assert (g != case[name]).any()
+        assert (g[:, :, :3] != gi[:, :, :3]).any(), f"{name}: left border"
+        assert (g[:, :3] != gi[:, :3]).any(), f"{name}: top border"
 
 
 # --------------------------------------------------------------------------

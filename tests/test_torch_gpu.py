@@ -16,6 +16,7 @@ from x264dsp_tpu_torch.ops import deblock as TDB
 from x264dsp_tpu_torch.ops import mc as TMC
 from x264dsp_tpu_torch.ops import mcgather as TMG
 from x264dsp_tpu_torch.ops import me_sad as TSAD
+from torch_lanes import random_lanes
 
 MB_W, MB_H, R = 6, 4, 16
 
@@ -339,6 +340,90 @@ def test_wave_kernels_match_plain(cuda, intra):
     k3 = TDB.deblock_frame(*args, 2, -2, MB_W, MB_H)
     for g, w in zip((gy, gu, gv), k3):
         assert torch.equal(g, w)
+
+
+def _check_wave_kernels(args, luma_l, chroma_l, mb_w, mb_h):
+    """K5a and K5b against their plain versions on the same lanes, one
+    launch of each counted; returns their planes."""
+    n0 = dict(TDB.launches)
+    gy = TDB.deblock_wave_luma_cuda(args[0], *luma_l, mb_w, mb_h)
+    gu, gv = TDB.deblock_wave_chroma_cuda(args[1], args[2], *chroma_l, mb_w,
+                                          mb_h)
+    torch.cuda.synchronize()
+    for k in ("deblock_wave_luma", "deblock_wave_chroma"):
+        assert TDB.launches[k] == n0[k] + 1
+    assert torch.equal(gy, TDB.deblock_wave_luma_plain(args[0], *luma_l,
+                                                       mb_w, mb_h))
+    wu, wv = TDB.deblock_wave_chroma_plain(args[1], args[2], *chroma_l, mb_w,
+                                           mb_h)
+    assert torch.equal(gu, wu) and torch.equal(gv, wv)
+    return gy, gu, gv
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("intra", [False, True])
+@pytest.mark.parametrize("S", [1, 3])
+@pytest.mark.parametrize("mb_w, mb_h", [(1, 1), (1, 5), (5, 1), (2, 9),
+                                        (9, 2), (11, 3)])
+def test_wave_kernels_edge_shapes(cuda, mb_w, mb_h, S, intra):
+    """K5a / K5b's row pipeline on one MB, a frame one MB wide (whose odd
+    diagonals are empty), one MB row, tall frames and frames wider than
+    twice their height: equal to their plain versions and to K3."""
+    c = _case(cuda, 15, S)
+    args = _frame_args(c["t"], c["rng"], S, mb_w, mb_h, intra)
+    luma_l, chroma_l = TDB.wave_lanes(*args[3:], 3, -2, mb_w, mb_h)
+    got = _check_wave_kernels(args, luma_l, chroma_l, mb_w, mb_h)
+    for g, w in zip(got, TDB.deblock_frame_cuda(*args, 3, -2, mb_w, mb_h)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [1, 3])
+@pytest.mark.parametrize("mb_w, mb_h", [(1, 1), (1, 5), (5, 1), (2, 9),
+                                        (6, 4), (11, 3)])
+def test_wave_kernels_random_lanes(cuda, mb_w, mb_h, S):
+    """K5a / K5b on random lanes with every edge enabled, the frame-border
+    edges too (tc0 -1..25, alpha 0..255, beta 0..18, random intra flags):
+    pixels outside the frame read as 0 at every MB (a stale top halo in
+    row 0 would show here) and nothing is stored outside the frame."""
+    c = _case(cuda, 16, S)
+    args = _frame_args(c["t"], c["rng"], S, mb_w, mb_h, False)
+    luma_l, chroma_l = ([c["t"](a) for a in fam]
+                        for fam in random_lanes(c["rng"], S, mb_w, mb_h))
+    gy, gu, gv = _check_wave_kernels(args, luma_l, chroma_l, mb_w, mb_h)
+    assert not torch.equal(gy, args[0])
+
+
+@pytest.mark.gpu
+def test_wave_kernels_back_to_back_and_side_stream(cuda):
+    """K5a and K5b twice back to back on other inputs with no sync between
+    the launches (each allocates its own counters, zeroed on the stream),
+    then once more on a non-default stream."""
+    mb_w, mb_h, S = 7, 5, 2
+    c = _case(cuda, 17, S)
+    runs = []
+    for intra, border in ((False, True), (True, False)):
+        args = _frame_args(c["t"], c["rng"], S, mb_w, mb_h, intra)
+        lanes = [[c["t"](a) for a in fam] for fam in random_lanes(
+            c["rng"], S, mb_w, mb_h, border)]
+        runs.append((args, lanes))
+
+    def launch(args, lanes):
+        return (TDB.deblock_wave_luma_cuda(args[0], *lanes[0], mb_w, mb_h),
+                *TDB.deblock_wave_chroma_cuda(args[1], args[2], *lanes[1],
+                                              mb_w, mb_h))
+    got = [launch(*r) for r in runs]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got.append(launch(*runs[0]))
+    torch.cuda.synchronize()
+    for out, (args, lanes) in zip(got, runs + runs[:1]):
+        assert torch.equal(out[0], TDB.deblock_wave_luma_plain(
+            args[0], *lanes[0], mb_w, mb_h))
+        wu, wv = TDB.deblock_wave_chroma_plain(args[1], args[2], *lanes[1],
+                                               mb_w, mb_h)
+        assert torch.equal(out[1], wu) and torch.equal(out[2], wv)
 
 
 @pytest.mark.gpu

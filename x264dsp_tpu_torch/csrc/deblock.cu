@@ -1,7 +1,9 @@
-// H.264 in-loop deblocking filter: kernel K3 (whole frame from the raw
-// per-MB grids) and, further down, K5a / K5b (whole frame from precomputed
-// filter lanes) and K6 (the edge chain on gathered regions). All share the
-// edge filters edge_luma / edge_chroma below.
+// H.264 in-loop deblocking filter: kernels K3 (whole frame from the raw
+// per-MB grids), K5a / K5b (whole frame from precomputed filter lanes) and
+// K6 (the edge chain on gathered regions). All share the edge filters
+// edge_luma / edge_chroma and the line walk filter_line; K3, K5a and K5b
+// share one row walk, deblock_row, which takes its filter parameters from
+// a source: GridSource (K3) or LaneSource (K5a, K5b).
 //
 // K3
 // --
@@ -33,24 +35,42 @@
 //   ever waits on a CTA that has started (blockIdx order is not relied on);
 // - per MB, the critical path holds one wait, one L2 read of the 4 rows
 //   above, the filter and the stores: the MB's own pixels and its edge
-//   parameters (grids only) are read before the wait, the alpha / beta /
-//   tc0 table sits in shared memory, and the MB is filtered in a shared
-//   tile with its left halo carried from the previous MB;
+//   parameters are read before the wait, the alpha / beta / tc0 table
+//   sits in shared memory, and the MB is filtered in a shared tile with
+//   its left halo carried from the previous MB;
 // - 16 lanes own one pixel line each in registers for the 4 vertical edges,
 //   then one column each for the 4 horizontal edges, in deblock.c order.
+//
+// K5a / K5b
+// ---------
+// Replace x264dsp_tpu/ops/pallas/deblock_wave.py::deblock_wave_luma
+// (_luma_kernel, _filter_luma_regs) and ::deblock_wave_chroma
+// (_chroma_kernel, _filter_chroma_regs), reached from ops/deblock.py::
+// deblock_frame_wave_batched. They compute K3's function, but every filter
+// parameter comes from the caller's lane tensors, laid out per stream,
+// diagonal d (x + 2y = d) and slot k (MB row y0(d) + k, y0(d) =
+// max(0, (d - mb_w + 2) / 2)):
+//   luma   tc0y (S, D, K, 128) at [dir * 64 + edge * 16 + pixel line],
+//          eny / uiy / aly / bly (S, D, K, 8) at [dir * 4 + edge]
+//          (enabled, intra filter, alpha, beta);
+//   chroma tcc (S, D, 2K, 32) at [dir * 16 + edge * 8 + line] (tc0 + 1),
+//          enc / uic / alc / blc (S, D, 2K, 4) at [dir * 2 + edge], slot
+//          2k for u and 2k + 1 for v.
+// An unused slot has every enable 0 and is never read here.
+//
+// Every pair of MBs whose 20x20 (12x12) regions overlap comes in the same
+// order on the 2:1 diagonals and in raster order, so the lanes drive K3's
+// row pipeline unchanged: one warp per (MB row, stream), luma alone (K5a,
+// S mb_h CTAs) or u and v together (K5b), each MB's lanes read before the
+// wait with its pixels. Unlike K3's grids, lanes may enable an edge on the
+// frame border. The plain version and the TPU kernel read pixels outside
+// the frame as 0 and write the p side of such an edge into their zero pad,
+// which no later filter reads (each filter spans positions >= 4 of its
+// line only). Here the tile's left halo is 0 at x = 0 and its top halo is
+// set to 0 at every MB of row 0, and nothing is stored outside the frame.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-struct Params {
-    const int* bs;
-    const int* intra;
-    const int* feo;
-    const int* qp;
-    const int* qpc;
-    const int* tab;
-    int mb_h, mb_w, alpha_off, beta_off;
-};
 
 __device__ __forceinline__ int clip3(int v, int lo, int hi) {
     return v < lo ? lo : (v > hi ? hi : v);
@@ -116,68 +136,74 @@ __device__ __forceinline__ void edge_chroma(int* a, int c, int alpha,
     a[c] = clip3(q0 - delta, 0, 255);
 }
 
-// Filter parameters of one pixel line of one MB in one direction: edge 0
-// (the MB edge, averaged QP, on when the neighbour exists) and the
-// internal edges (the MB's QP, off for first-edge-only MBs).
-struct LineParams {
+// Filter parameters of one pixel line across the MB's edges of one
+// direction, from the grids: edge 0 (the MB edge, averaged QP, on when
+// the neighbour exists) and the internal edges (the MB's QP, off for
+// first-edge-only MBs). The accessors take the edge as a constant of an
+// unrolled loop, so they fold away.
+struct GridLine {
     int alpha0, beta0, alpha1, beta1;
-    int tc[4];              // per edge: tc0 (luma) or tc0 + 1 (chroma)
+    int tcs[4];             // per edge: tc0 (luma) or tc0 + 1 (chroma)
     bool on0, internal, intra0;
+    __device__ bool on(int ed) const { return ed == 0 ? on0 : internal; }
+    __device__ int alpha(int ed) const { return ed == 0 ? alpha0 : alpha1; }
+    __device__ int beta(int ed) const { return ed == 0 ? beta0 : beta1; }
+    __device__ int tc(int ed) const { return tcs[ed]; }
+    __device__ bool intra(int ed) const { return ed == 0 && intra0; }
 };
 
-// N = 16: luma line k, 4 edges on bS rows 0..3, group k / 4.
-// N = 8: chroma line k, 2 edges on bS rows 0 and 2, group k / 2.
-// tab is the CTA's shared copy of alpha | beta | tc0.
+// The same from the lanes: every edge has its own enable, intra flag,
+// alpha and beta, and each line its own tc, for E edges.
+template <int E>
+struct LaneLine {
+    int tcs[E], alphas[E], betas[E];
+    unsigned ens, uis;      // bit ed: enabled, intra filter
+    __device__ bool on(int ed) const { return (ens >> ed) & 1u; }
+    __device__ int alpha(int ed) const { return alphas[ed]; }
+    __device__ int beta(int ed) const { return betas[ed]; }
+    __device__ int tc(int ed) const { return tcs[ed]; }
+    __device__ bool intra(int ed) const { return (uis >> ed) & 1u; }
+};
+
+// One line's lanes: tc at the line's entry of edge 0 (edges N entries
+// apart), en / ui / al / bl at edge 0 of the direction. N = 16: luma,
+// 4 edges; N = 8: chroma, 2 edges.
 template <int N>
-__device__ __forceinline__ LineParams line_params(
-        const Params& P, const int* tab, const int* qgrid, int g, int gn,
-        bool has_nb, int dir, int k) {
-    LineParams lp;
-    const int q = __ldg(qgrid + g);
-    const int qe = (q + __ldg(qgrid + gn) + 1) >> 1;
-    const int ia0 = clip3(qe + P.alpha_off, 0, 51);
-    const int ia1 = clip3(q + P.alpha_off, 0, 51);
-    lp.alpha0 = tab[ia0];
-    lp.beta0 = tab[52 + clip3(qe + P.beta_off, 0, 51)];
-    lp.alpha1 = tab[ia1];
-    lp.beta1 = tab[52 + clip3(q + P.beta_off, 0, 51)];
-    lp.on0 = has_nb;
-    lp.internal = __ldg(P.feo + g) == 0;
-    lp.intra0 = __ldg(P.intra + g) != 0
-                || (has_nb && __ldg(P.intra + gn) != 0);
-    const int* bs = P.bs + ((long long)g * 2 + dir) * 16;
+__device__ __forceinline__ LaneLine<N / 4> lane_line(
+        const int* tc, const int* en, const int* ui, const int* al,
+        const int* bl) {
+    LaneLine<N / 4> lp;
+    lp.ens = lp.uis = 0u;
 #pragma unroll
     for (int ed = 0; ed < N / 4; ++ed) {
-        const int row = N == 16 ? ed : 2 * ed;
-        const int grp = N == 16 ? k >> 2 : k >> 1;
-        lp.tc[ed] = tab[104 + (ed == 0 ? ia0 : ia1) * 4
-                        + clip3(__ldg(bs + row * 4 + grp), 0, 3)]
-                    + (N == 16 ? 0 : 1);
+        lp.tcs[ed] = tc[ed * N];
+        lp.alphas[ed] = al[ed];
+        lp.betas[ed] = bl[ed];
+        lp.ens |= (en[ed] != 0 ? 1u : 0u) << ed;
+        lp.uis |= (ui[ed] != 0 ? 1u : 0u) << ed;
     }
     return lp;
 }
 
-// One pixel line across the MB's edges of one direction, in the CTA's
-// tile: px[(i - 4) * step] for i in 0..N+3 (the first 4 are the
+// One pixel line across the MB's edges of one direction, in shared
+// memory: px[(i - 4) * step] for i in 0..N+3 (the first 4 are the
 // neighbour's p side; they are filtered only when edge 0 is on).
-template <int N>
+template <int N, class Line>
 __device__ __forceinline__ void filter_line(int* px, int step,
-                                            const LineParams& lp) {
+                                            const Line& lp) {
     constexpr int L = N + 4;
     int a[L];
 #pragma unroll
     for (int i = 0; i < L; ++i) a[i] = px[(i - 4) * step];
 #pragma unroll
     for (int ed = 0; ed < N / 4; ++ed) {
-        if (!(ed == 0 ? lp.on0 : lp.internal)) continue;
-        const int alpha = ed == 0 ? lp.alpha0 : lp.alpha1;
-        const int beta = ed == 0 ? lp.beta0 : lp.beta1;
+        if (!lp.on(ed)) continue;
         if constexpr (N == 16)
-            edge_luma(a, 4 + 4 * ed, alpha, beta, lp.tc[ed],
-                      ed == 0 && lp.intra0);
+            edge_luma(a, 4 + 4 * ed, lp.alpha(ed), lp.beta(ed), lp.tc(ed),
+                      lp.intra(ed));
         else
-            edge_chroma(a, 4 + 4 * ed, alpha, beta, lp.tc[ed],
-                        ed == 0 && lp.intra0);
+            edge_chroma(a, 4 + 4 * ed, lp.alpha(ed), lp.beta(ed), lp.tc(ed),
+                        lp.intra(ed));
     }
 #pragma unroll
     for (int i = 1; i < L; ++i) px[(i - 4) * step] = a[i];
@@ -203,52 +229,49 @@ __device__ __forceinline__ int4 get4(const int* d) {
     return make_int4(d[0], d[1], d[2], d[3]);
 }
 
-#define K3_THREADS 32
+#define ROW_THREADS 32
 
 // One MB row of one stream and plane group, walked by one warp. N = 16,
 // NP = 1: luma; N = 8, NP = 2: u and v. The tile holds, per plane, the
 // MB (rows and columns 4..N+3) with 4 halo columns on the left (the
-// previous MB's last 4 columns, carried in shared memory) and 4 halo rows
-// on top (the row above's pixels, read after the wait).
-template <int N, int NP>
-__device__ void deblock_row(int* p0, int* p1, const Params& P,
-                            const int* qgrid, const int* tab, int* tile,
-                            int s, int y, const int* above, int* mine) {
+// previous MB's last 4 columns, carried in shared memory; 0 at x = 0) and
+// 4 halo rows on top (the row above's pixels, read after the wait; 0 in
+// row 0). src.line<N>(s, y, x, dir, lane) gives the filter parameters of
+// compute lane `lane`'s line (plane lane / N, line lane % N).
+template <int N, int NP, class Src>
+__device__ void deblock_row(int* p0, int* p1, const Src& src, int* tile,
+                            int s, int y, int mb_h, int mb_w,
+                            const int* above, int* mine) {
     constexpr int T = N + 4;        // tile side
     constexpr int TS = T + 1;       // odd row stride: no bank conflicts
     constexpr int TP = T * TS;      // ints per plane
     constexpr int V = N / 4;        // int4 per MB pixel row
-    constexpr int OWN = NP * N * V / K3_THREADS;    // int4 per lane
+    constexpr int OWN = NP * N * V / ROW_THREADS;   // int4 per lane
     const int lane = threadIdx.x;
-    const int mb_w = P.mb_w;
     const int Wp = N * mb_w;
-    const long long frame = (long long)s * N * P.mb_h * Wp;
+    const long long frame = (long long)s * N * mb_h * Wp;
     const int pl = lane / N, k = lane % N;      // compute lanes: 0..15
     auto at = [&](int p, int r, int c) {
         return (p ? p1 : p0) + frame + (long long)r * Wp + c;
     };
-    for (int i = lane; i < NP * TP; i += K3_THREADS) tile[i] = 0;
+    for (int i = lane; i < NP * TP; i += ROW_THREADS) tile[i] = 0;
     __syncwarp();
     int seen = 0;
     for (int x = 0; x < mb_w; ++x) {
         // The MB's own pixels are untouched until this step (every MB
         // that writes them comes later in raster order), and its filter
-        // parameters depend on the grids only: both are read before the
+        // parameters never depend on pixels: both are read before the
         // wait.
         int4 own[OWN];
 #pragma unroll
         for (int j = 0; j < OWN; ++j) {
-            const int i = lane + K3_THREADS * j;
+            const int i = lane + ROW_THREADS * j;
             const int p = i / (N * V), r = (i / V) % N, v = i % V;
             own[j] = __ldcg(reinterpret_cast<const int4*>(
                 at(p, N * y + r, N * x + 4 * v)));
         }
-        const int g = (s * P.mb_h + y) * mb_w + x;
-        const LineParams lv = line_params<N>(P, tab, qgrid, g,
-                                             x > 0 ? g - 1 : g, x > 0, 0, k);
-        const LineParams lh = line_params<N>(P, tab, qgrid, g,
-                                             y > 0 ? g - mb_w : g, y > 0, 1,
-                                             k);
+        const auto lv = src.template line<N>(s, y, x, 0, lane);
+        const auto lh = src.template line<N>(s, y, x, 1, lane);
         if (y > 0) {
             // the row above has finished MB x + 1 (its edge 0 writes the
             // 3 right columns of MB x there), or its last MB
@@ -262,10 +285,16 @@ __device__ void deblock_row(int* p0, int* p1, const Params& P,
                      __ldcg(reinterpret_cast<const int4*>(
                          at(p, N * y - 4 + r, N * x + 4 * v))));
             }
+        } else if (lane < NP * 4 * V) {
+            // above the frame: 0 at every MB (the top edge of the previous
+            // MB may have filtered its copy of the top halo)
+            const int p = lane / (4 * V), r = (lane / V) % 4;
+            const int v = lane % V;
+            put4(tile + p * TP + r * TS + 4 + 4 * v, make_int4(0, 0, 0, 0));
         }
 #pragma unroll
         for (int j = 0; j < OWN; ++j) {
-            const int i = lane + K3_THREADS * j;
+            const int i = lane + ROW_THREADS * j;
             const int p = i / (N * V), r = (i / V) % N, v = i % V;
             put4(tile + p * TP + (4 + r) * TS + 4 + 4 * v, own[j]);
         }
@@ -286,7 +315,7 @@ __device__ void deblock_row(int* p0, int* p1, const Params& P,
             *reinterpret_cast<int4*>(at(p, N * y - 4 + r, N * x + 4 * v)) =
                 get4(tile + p * TP + r * TS + 4 + 4 * v);
         }
-        for (int i = lane; i < NP * N * V; i += K3_THREADS) {
+        for (int i = lane; i < NP * N * V; i += ROW_THREADS) {
             const int p = i / (N * V), r = (i / V) % N, v = i % V;
             if (v == 0 && x == 0) continue;     // left of the frame
             *reinterpret_cast<int4*>(at(p, N * y + r, N * x - 4 + 4 * v)) =
@@ -302,7 +331,7 @@ __device__ void deblock_row(int* p0, int* p1, const Params& P,
         __syncwarp();
         if (lane == 0) st_release_gpu(mine, x + 1);
         // carry this MB's last 4 columns into the next tile's left halo
-        for (int i = lane; i < NP * N * 4; i += K3_THREADS) {
+        for (int i = lane; i < NP * N * 4; i += ROW_THREADS) {
             const int p = i / (4 * N), r = (i / 4) % N, c = i % 4;
             int* row = tile + p * TP + (4 + r) * TS;
             row[c] = row[N + c];
@@ -311,29 +340,95 @@ __device__ void deblock_row(int* p0, int* p1, const Params& P,
     }
 }
 
-// One CTA (one warp) per (MB row, stream, plane group). sync[0] hands out
-// tickets, sync[1 + (2 s + group) * mb_h + row] is a row's count of
-// finished MBs; x264t_deblock zeroes sync on the stream before the launch.
-__global__ void __launch_bounds__(K3_THREADS)
+// A CTA's row: sync[0] hands out tickets in the start order of the CTAs,
+// and rows take them in order, so a CTA waits only on a row whose CTA
+// started before it.
+__device__ __forceinline__ int row_ticket(int* sync, int* ticket) {
+    if (threadIdx.x == 0) *ticket = atomicAdd(sync, 1);
+    __syncwarp();
+    return *ticket;
+}
+
+// Zero a row pipeline's ticket and its rows' progress counters on the
+// launch's stream (the entry points of K3, K5a and K5b).
+static cudaError_t zero_sync(int* sync, int rows, cudaStream_t stream) {
+    return cudaMemsetAsync(sync, 0, sizeof(int) * (1 + rows), stream);
+}
+
+// ---------------------------------------------------------------------------
+// K3: the parameters from the raw grids
+// ---------------------------------------------------------------------------
+
+struct Params {
+    const int* bs;
+    const int* intra;
+    const int* feo;
+    const int* qp;
+    const int* qpc;
+    const int* tab;
+    int mb_h, mb_w, alpha_off, beta_off;
+};
+
+// qgrid is qp (luma) or qpc (chroma); tab the CTA's shared copy of
+// alpha | beta | tc0.
+struct GridSource {
+    Params P;
+    const int* qgrid;
+    const int* tab;
+
+    // N = 16: luma line k, 4 edges on bS rows 0..3, group k / 4.
+    // N = 8: chroma line k, 2 edges on bS rows 0 and 2, group k / 2.
+    template <int N>
+    __device__ __forceinline__ GridLine line(int s, int y, int x, int dir,
+                                             int lane) const {
+        const int k = lane % N;
+        const int g = (s * P.mb_h + y) * P.mb_w + x;
+        const bool has_nb = dir == 0 ? x > 0 : y > 0;
+        const int gn = !has_nb ? g : dir == 0 ? g - 1 : g - P.mb_w;
+        GridLine lp;
+        const int q = __ldg(qgrid + g);
+        const int qe = (q + __ldg(qgrid + gn) + 1) >> 1;
+        const int ia0 = clip3(qe + P.alpha_off, 0, 51);
+        const int ia1 = clip3(q + P.alpha_off, 0, 51);
+        lp.alpha0 = tab[ia0];
+        lp.beta0 = tab[52 + clip3(qe + P.beta_off, 0, 51)];
+        lp.alpha1 = tab[ia1];
+        lp.beta1 = tab[52 + clip3(q + P.beta_off, 0, 51)];
+        lp.on0 = has_nb;
+        lp.internal = __ldg(P.feo + g) == 0;
+        lp.intra0 = __ldg(P.intra + g) != 0
+                    || (has_nb && __ldg(P.intra + gn) != 0);
+        const int* bs = P.bs + ((long long)g * 2 + dir) * 16;
+#pragma unroll
+        for (int ed = 0; ed < N / 4; ++ed) {
+            const int row = N == 16 ? ed : 2 * ed;
+            const int grp = N == 16 ? k >> 2 : k >> 1;
+            lp.tcs[ed] = tab[104 + (ed == 0 ? ia0 : ia1) * 4
+                             + clip3(__ldg(bs + row * 4 + grp), 0, 3)]
+                         + (N == 16 ? 0 : 1);
+        }
+        return lp;
+    }
+};
+
+// One CTA (one warp) per (MB row, stream, plane group).
+// sync[1 + (2 s + group) * mb_h + row] is a row's count of finished MBs.
+__global__ void __launch_bounds__(ROW_THREADS)
 deblock_kernel(int* y, int* u, int* v, Params P, int S, int* sync) {
     __shared__ int tab[312];
     __shared__ int tile[20 * 21];   // luma 20 x 21; chroma 2 x 12 x 13
     __shared__ int ticket;
-    if (threadIdx.x == 0) ticket = atomicAdd(sync, 1);
-    for (int i = threadIdx.x; i < 312; i += K3_THREADS) tab[i] = P.tab[i];
-    __syncwarp();
-    // tickets follow the start order of the CTAs, and rows take them in
-    // order: a CTA waits only on a row whose CTA started before it
-    const int t = ticket;
+    for (int i = threadIdx.x; i < 312; i += ROW_THREADS) tab[i] = P.tab[i];
+    const int t = row_ticket(sync, &ticket);
     const int row = t / (2 * S), grp = t % (2 * S);
     int* prog = sync + 1 + grp * P.mb_h;
     const int* above = row > 0 ? prog + row - 1 : prog;
     if (grp & 1)
-        deblock_row<8, 2>(u, v, P, P.qpc, tab, tile, grp >> 1, row, above,
-                          prog + row);
+        deblock_row<8, 2>(u, v, GridSource{P, P.qpc, tab}, tile, grp >> 1,
+                          row, P.mb_h, P.mb_w, above, prog + row);
     else
-        deblock_row<16, 1>(y, y, P, P.qp, tab, tile, grp >> 1, row, above,
-                           prog + row);
+        deblock_row<16, 1>(y, y, GridSource{P, P.qp, tab}, tile, grp >> 1,
+                           row, P.mb_h, P.mb_w, above, prog + row);
 }
 
 extern "C" int x264t_deblock(int* y, int* u, int* v, const int* bs,
@@ -343,181 +438,98 @@ extern "C" int x264t_deblock(int* y, int* u, int* v, const int* bs,
                              int beta_off, void* stream) {
     Params P{bs, intra, feo, qp, qpc, tab, mb_h, mb_w, alpha_off, beta_off};
     const int rows = 2 * S * mb_h;
-    cudaError_t err = cudaMemsetAsync(sync, 0, sizeof(int) * (1 + rows),
-                                      (cudaStream_t)stream);
+    cudaError_t err = zero_sync(sync, rows, (cudaStream_t)stream);
     if (err != cudaSuccess) return (int)err;
-    deblock_kernel<<<rows, K3_THREADS, 0, (cudaStream_t)stream>>>(y, u, v, P,
-                                                                  S, sync);
+    deblock_kernel<<<rows, ROW_THREADS, 0, (cudaStream_t)stream>>>(y, u, v, P,
+                                                                   S, sync);
     return (int)cudaGetLastError();
 }
 
-
 // ---------------------------------------------------------------------------
-// K5a / K5b: whole-frame wavefront from precomputed per-diagonal lanes
+// K5a / K5b: the parameters from the lanes
 // ---------------------------------------------------------------------------
-//
-// Replace x264dsp_tpu/ops/pallas/deblock_wave.py::deblock_wave_luma
-// (_luma_kernel, _filter_luma_regs) and ::deblock_wave_chroma
-// (_chroma_kernel, _filter_chroma_regs), reached from ops/deblock.py::
-// deblock_frame_wave_batched. They compute K3's function, but every filter
-// parameter comes from the caller's lane tensors, laid out per stream,
-// diagonal d (x + 2y = d) and slot k (MB row y0(d) + k):
-//   luma   tc0y (S, D, K, 128) at [dir * 64 + edge * 16 + pixel line],
-//          eny / uiy / aly / bly (S, D, K, 8) at [dir * 4 + edge]
-//          (enabled, intra filter, alpha, beta);
-//   chroma tcc (S, D, 2K, 32) at [dir * 16 + edge * 8 + line] (tc0 + 1),
-//          enc / uic / alc / blc (S, D, 2K, 4) at [dir * 2 + edge], slot
-//          2k for u and 2k + 1 for v.
-// An unused slot has every enable 0.
-//
-// Bound on the H100: as K3, the latency of the D dependent diagonal steps,
-// not bytes or operations. Design: one block per stream walks all
-// diagonals in the plane itself (global memory; a 1080p int32 plane fits
-// the L2 cache), 16 threads per slot, __syncthreads between the vertical
-// and the horizontal edges and between diagonals. A thread addresses
-// plane[16y + r][16x + c] directly: the TPU kernel's 256-wide superwindow,
-// its one-hot column matmuls and additive one-hot placements stand in for
-// loads and stores it does not have. Pixels left of or above the frame
-// read as 0 and are never written.
 
-// One luma pixel line across its 4 edges, parameters from the lanes:
-// px points at the line's first pixel inside the MB, tc0 at this line's
-// lane of edge 0 (edges are 16 lanes apart), en / ui / al / bl at edge 0.
-__device__ __forceinline__ void luma_line_lanes(
-        int* px, long long step, bool has_nb, const int* tc0, const int* en,
-        const int* ui, const int* al, const int* bl) {
-    int a[20];
-#pragma unroll
-    for (int i = 0; i < 20; ++i)
-        a[i] = (i >= 4 || has_nb) ? px[(i - 4) * step] : 0;
-#pragma unroll
-    for (int ed = 0; ed < 4; ++ed)
-        if (en[ed] != 0)
-            edge_luma(a, 4 + 4 * ed, al[ed], bl[ed], tc0[16 * ed],
-                      ui[ed] != 0);
-#pragma unroll
-    for (int i = 1; i < 20; ++i)
-        if (i >= 4 || has_nb) px[(i - 4) * step] = a[i];
-}
+// One plane family's lanes (tc0y, eny, uiy, aly, bly or tcc, enc, uic,
+// alc, blc); D diagonals of K MB slots (K5b: 2K lane slots, u and v).
+struct LaneSource {
+    const int* tc;
+    const int* en;
+    const int* ui;
+    const int* al;
+    const int* bl;
+    int mb_w, D, K;
 
-// One chroma pixel line across its 2 edges (edges are 8 lanes apart).
-__device__ __forceinline__ void chroma_line_lanes(
-        int* px, long long step, bool has_nb, const int* tc, const int* en,
-        const int* ui, const int* al, const int* bl) {
-    int a[12];
-#pragma unroll
-    for (int i = 0; i < 12; ++i)
-        a[i] = (i >= 4 || has_nb) ? px[(i - 4) * step] : 0;
-#pragma unroll
-    for (int ed = 0; ed < 2; ++ed)
-        if (en[ed] != 0)
-            edge_chroma(a, 4 + 4 * ed, al[ed], bl[ed], tc[8 * ed],
-                        ui[ed] != 0);
-#pragma unroll
-    for (int i = 2; i < 12; ++i)
-        if (i >= 4 || has_nb) px[(i - 4) * step] = a[i];
-}
-
-#define WAVE_MAX_THREADS 1024
-
-__global__ void __launch_bounds__(WAVE_MAX_THREADS)
-deblock_wave_luma_kernel(int* y, const int* tc0y, const int* eny,
-                         const int* uiy, const int* aly, const int* bly,
-                         int mb_h, int mb_w, int K) {
-    const int s = blockIdx.x;
-    const int n_diag = mb_w + 2 * mb_h - 2;
-    const int lane = threadIdx.x & 15;          // 16 threads per slot
-    const int n_slots = blockDim.x >> 4;
-    const int W = 16 * mb_w, H = 16 * mb_h;
-    int* plane = y + (long long)s * H * W;
-    for (int d = 0; d < n_diag; ++d) {
-        const int y0 = d - mb_w + 1 > 0 ? (d - mb_w + 2) / 2 : 0;
-        for (int dir = 0; dir < 2; ++dir) {
-            for (int k = threadIdx.x >> 4; k < K; k += n_slots) {
-                const int mby = y0 + k, mbx = d - 2 * mby;
-                if (mby >= mb_h || mbx < 0) break;
-                const long long slot = ((long long)s * n_diag + d) * K + k;
-                const int* tc0 = tc0y + slot * 128 + dir * 64 + lane;
-                const long long e0 = slot * 8 + dir * 4;
-                if (dir == 0)       // row `lane`, vertical edges
-                    luma_line_lanes(
-                        plane + (long long)(16 * mby + lane) * W + 16 * mbx,
-                        1, mbx > 0, tc0, eny + e0, uiy + e0, aly + e0,
-                        bly + e0);
-                else                // column `lane`, horizontal edges
-                    luma_line_lanes(
-                        plane + (long long)(16 * mby) * W + 16 * mbx + lane,
-                        W, mby > 0, tc0, eny + e0, uiy + e0, aly + e0,
-                        bly + e0);
-            }
-            __syncthreads();
-        }
+    // N = 16: luma line lane % 16; N = 8: chroma line lane % 8 of plane
+    // lane / 8 (u, v).
+    template <int N>
+    __device__ __forceinline__ LaneLine<N / 4> line(int s, int y, int x,
+                                                    int dir,
+                                                    int lane) const {
+        constexpr int E = N / 4;            // edges per direction
+        constexpr int NP = N == 16 ? 1 : 2; // lane slots per MB
+        const int d = x + 2 * y;
+        const int k = y - max(0, (d - mb_w + 2) / 2);
+        const int pl = (lane / N) & (NP - 1);
+        const long long slot = (((long long)s * D + d) * K + k) * NP + pl;
+        const long long e0 = slot * 2 * E + dir * E;
+        return lane_line<N>(tc + slot * 2 * E * N + dir * E * N + lane % N,
+                            en + e0, ui + e0, al + e0, bl + e0);
     }
+};
+
+// One CTA (one warp) per (MB row, stream); sync[1 + s * mb_h + row] is a
+// row's count of finished MBs.
+__global__ void __launch_bounds__(ROW_THREADS)
+deblock_wave_luma_kernel(int* y, LaneSource L, int S, int mb_h, int* sync) {
+    __shared__ int tile[20 * 21];
+    __shared__ int ticket;
+    const int t = row_ticket(sync, &ticket);
+    const int row = t / S, s = t % S;
+    int* prog = sync + 1 + s * mb_h;
+    deblock_row<16, 1>(y, y, L, tile, s, row, mb_h, L.mb_w,
+                       row > 0 ? prog + row - 1 : prog, prog + row);
 }
 
-__global__ void __launch_bounds__(WAVE_MAX_THREADS)
-deblock_wave_chroma_kernel(int* u, int* v, const int* tcc, const int* enc,
-                           const int* uic, const int* alc, const int* blc,
-                           int mb_h, int mb_w, int K) {
-    const int s = blockIdx.x;
-    const int n_diag = mb_w + 2 * mb_h - 2;
-    const int ch = (threadIdx.x >> 3) & 1;      // 8 threads per (slot, plane)
-    const int lane = threadIdx.x & 7;
-    const int n_slots = blockDim.x >> 4;
-    const int Wc = 8 * mb_w, Hc = 8 * mb_h;
-    int* plane = (ch ? v : u) + (long long)s * Hc * Wc;
-    for (int d = 0; d < n_diag; ++d) {
-        const int y0 = d - mb_w + 1 > 0 ? (d - mb_w + 2) / 2 : 0;
-        for (int dir = 0; dir < 2; ++dir) {
-            for (int k = threadIdx.x >> 4; k < K; k += n_slots) {
-                const int mby = y0 + k, mbx = d - 2 * mby;
-                if (mby >= mb_h || mbx < 0) break;
-                const long long slot =
-                    ((long long)s * n_diag + d) * 2 * K + 2 * k + ch;
-                const int* tc = tcc + slot * 32 + dir * 16 + lane;
-                const long long e0 = slot * 4 + dir * 2;
-                if (dir == 0)
-                    chroma_line_lanes(
-                        plane + (long long)(8 * mby + lane) * Wc + 8 * mbx,
-                        1, mbx > 0, tc, enc + e0, uic + e0, alc + e0,
-                        blc + e0);
-                else
-                    chroma_line_lanes(
-                        plane + (long long)(8 * mby) * Wc + 8 * mbx + lane,
-                        Wc, mby > 0, tc, enc + e0, uic + e0, alc + e0,
-                        blc + e0);
-            }
-            __syncthreads();
-        }
-    }
+__global__ void __launch_bounds__(ROW_THREADS)
+deblock_wave_chroma_kernel(int* u, int* v, LaneSource L, int S, int mb_h,
+                           int* sync) {
+    __shared__ int tile[2 * 12 * 13];
+    __shared__ int ticket;
+    const int t = row_ticket(sync, &ticket);
+    const int row = t / S, s = t % S;
+    int* prog = sync + 1 + s * mb_h;
+    deblock_row<8, 2>(u, v, L, tile, s, row, mb_h, L.mb_w,
+                      row > 0 ? prog + row - 1 : prog, prog + row);
 }
 
-// 16 threads per slot, whole warps, at most WAVE_MAX_THREADS: a frame whose
-// longest diagonal has more slots loops over them.
-static int wave_threads(int K) {
-    const int t = ((16 * K + 31) / 32) * 32;
-    return t < 32 ? 32 : (t > WAVE_MAX_THREADS ? WAVE_MAX_THREADS : t);
-}
-
+// sync: (1 + S mb_h) int32 scratch, zeroed here on the stream.
 extern "C" int x264t_deblock_wave_luma(int* y, const int* tc0y,
                                        const int* eny, const int* uiy,
-                                       const int* aly, const int* bly, int S,
-                                       int mb_h, int mb_w, int K,
-                                       void* stream) {
-    deblock_wave_luma_kernel<<<S, wave_threads(K), 0,
-                               (cudaStream_t)stream>>>(
-        y, tc0y, eny, uiy, aly, bly, mb_h, mb_w, K);
+                                       const int* aly, const int* bly,
+                                       int* sync, int S, int mb_h, int mb_w,
+                                       int K, void* stream) {
+    const LaneSource L{tc0y, eny, uiy, aly, bly, mb_w, mb_w + 2 * mb_h - 2,
+                       K};
+    cudaError_t err = zero_sync(sync, S * mb_h, (cudaStream_t)stream);
+    if (err != cudaSuccess) return (int)err;
+    deblock_wave_luma_kernel<<<S * mb_h, ROW_THREADS, 0,
+                               (cudaStream_t)stream>>>(y, L, S, mb_h, sync);
     return (int)cudaGetLastError();
 }
 
+// K: MB slots per diagonal (the lanes hold 2K)
 extern "C" int x264t_deblock_wave_chroma(int* u, int* v, const int* tcc,
                                          const int* enc, const int* uic,
                                          const int* alc, const int* blc,
-                                         int S, int mb_h, int mb_w, int K,
-                                         void* stream) {
-    deblock_wave_chroma_kernel<<<S, wave_threads(K), 0,
-                                 (cudaStream_t)stream>>>(
-        u, v, tcc, enc, uic, alc, blc, mb_h, mb_w, K);
+                                         int* sync, int S, int mb_h,
+                                         int mb_w, int K, void* stream) {
+    const LaneSource L{tcc, enc, uic, alc, blc, mb_w, mb_w + 2 * mb_h - 2,
+                       K};
+    cudaError_t err = zero_sync(sync, S * mb_h, (cudaStream_t)stream);
+    if (err != cudaSuccess) return (int)err;
+    deblock_wave_chroma_kernel<<<S * mb_h, ROW_THREADS, 0,
+                                 (cudaStream_t)stream>>>(u, v, L, S, mb_h,
+                                                         sync);
     return (int)cudaGetLastError();
 }
 
@@ -529,7 +541,7 @@ extern "C" int x264t_deblock_wave_chroma(int* u, int* v, const int* tcc,
 // (_kernel), called once per diagonal by the region route of ops/deblock.py::
 // deblock_frame: regy (K, 20, 20) luma and regc (2K, 12, 12) chroma regions
 // (u then v per MB; the MB sits at [4:, 4:], its left and top halo in front)
-// and the lanes of K5 without the stream and diagonal axes. All four
+// and the lanes of K5a / K5b without the stream and diagonal axes. All four
 // vertical edges, then all four horizontal ones (2 + 2 for chroma): a
 // horizontal edge reads pixels a vertical edge wrote.
 //
@@ -619,18 +631,19 @@ filter_regions_kernel(int* __restrict__ oy, int* __restrict__ oc,
         if (t < 16) {
             int* px = dir == 0 ? m.y + (4 + t) * 20 + 4 : m.y + 4 * 20 + 4 + t;
             const int e0 = dir * 4;
-            luma_line_lanes(px, dir == 0 ? 1 : 20, true,
-                            m.tc0y + dir * 64 + t, m.e[EN_Y] + e0,
-                            m.e[UI_Y] + e0, m.e[AL_Y] + e0, m.e[BL_Y] + e0);
+            filter_line<16>(px, dir == 0 ? 1 : 20,
+                            lane_line<16>(m.tc0y + dir * 64 + t,
+                                          m.e[EN_Y] + e0, m.e[UI_Y] + e0,
+                                          m.e[AL_Y] + e0, m.e[BL_Y] + e0));
         } else {
             const int ch = (t - 16) >> 3, l = t & 7;
             int* reg = m.c + ch * 144;
             int* px = dir == 0 ? reg + (4 + l) * 12 + 4 : reg + 4 * 12 + 4 + l;
             const int e0 = ch * 4 + dir * 2;
-            chroma_line_lanes(px, dir == 0 ? 1 : 12, true,
-                              m.tcc + ch * 32 + dir * 16 + l, m.e[EN_C] + e0,
-                              m.e[UI_C] + e0, m.e[AL_C] + e0,
-                              m.e[BL_C] + e0);
+            filter_line<8>(px, dir == 0 ? 1 : 12,
+                           lane_line<8>(m.tcc + ch * 32 + dir * 16 + l,
+                                        m.e[EN_C] + e0, m.e[UI_C] + e0,
+                                        m.e[AL_C] + e0, m.e[BL_C] + e0));
         }
         __syncwarp();
     }

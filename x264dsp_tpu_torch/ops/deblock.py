@@ -11,8 +11,8 @@ same function, the counterpart of the JAX ``use_pallas`` argument:
   row, each row 2 MBs behind the row above;
 - ``route="wave"``: ``wave_lanes`` precomputes the per-diagonal per-slot
   filter lanes, then kernels K5a (``deblock_wave_luma``) and K5b
-  (``deblock_wave_chroma``) walk the wavefront from those lanes, one
-  launch each;
+  (``deblock_wave_chroma``) filter the whole frame from those lanes, one
+  launch each, in K3's row pipeline;
 - ``route="region"``: per diagonal x + 2y = d, an indexed gather of the
   20x20 luma / 12x12 chroma regions of every MB on it (all streams at
   once), kernel K6 (``filter_regions``) on the gathered regions with that
@@ -28,13 +28,16 @@ disjoint indices.
 K3 replaces x264dsp_tpu/ops/pallas/deblock_skew.py::deblock_skew_call,
 K5a/K5b replace ops/pallas/deblock_wave.py::deblock_wave_luma/_chroma and
 K6 replaces ops/pallas/deblock_filter.py::filter_regions. K3 and K5 are
-bound by the latency of the 254 dependent MB steps at 1080p: K3 pipelines
-the MB rows of all streams across the SMs (one CTA per row, progress
-counters between rows), K5 runs one block per stream that walks every
-diagonal in global memory; K6 moves under 2 MB a launch, so one warp per
-MB stages its regions and lanes in shared memory with 16-byte copies
-before the chain (see the source notes in the .cu). None keeps the TPU's
-skewed lane layout, superwindows or one-hot matmuls.
+bound by the latency of the 254 dependent MB steps at 1080p, and share
+one row pipeline: one warp per MB row (of each stream and plane group)
+walks its row 2 MBs behind the row above, progress counters between
+rows, the rows of all streams across the SMs; K3 reads its filter
+parameters from the grids, K5a / K5b from the lanes (the 2:1 diagonals
+order every pair of overlapping MB regions as raster order does). K6
+moves under 2 MB a launch, so one warp per MB stages its regions and
+lanes in shared memory with 16-byte copies before the chain (see the
+source notes in the .cu). None keeps the TPU's skewed lane layout,
+superwindows or one-hot matmuls.
 """
 
 from __future__ import annotations
@@ -345,6 +348,14 @@ def _copy(t):
     return out
 
 
+def _row_sync(rows: int, dev):
+    """A new scratch for a row-pipeline launch (K3, K5a, K5b): its ticket
+    and the rows' progress counters, zeroed by the C entry point on the
+    launch's stream. Never shared: two launches in flight would mix their
+    counters."""
+    return torch.empty(1 + rows, dtype=torch.int32, device=dev)
+
+
 def deblock_frame_cuda(y, u, v, bs, intra_mb, first_edge_only, qp, qpc,
                        alpha_off: int, beta_off: int, mb_w: int, mb_h: int):
     """Launch kernel K3 on S frames (arguments as deblock_frame_plain,
@@ -360,15 +371,13 @@ def deblock_frame_cuda(y, u, v, bs, intra_mb, first_edge_only, qp, qpc,
                            (qp, grid, "qp"), (qpc, grid, "qpc")):
         _build.require_cuda(t, torch.int32, shape, name)
     oy, ou, ov = _copy(y), _copy(u), _copy(v)
-    # ticket and per-row progress counters (zeroed by the entry point)
-    sync = torch.empty(1 + 2 * S * mb_h, dtype=torch.int32, device=y.device)
     lib = _build.lib()
     code = lib.x264t_deblock(
         oy.data_ptr(), ou.data_ptr(), ov.data_ptr(), bs.data_ptr(),
         intra_mb.data_ptr(), first_edge_only.data_ptr(), qp.data_ptr(),
         qpc.data_ptr(), device_table(_KERNEL_TAB, y.device).data_ptr(),
-        sync.data_ptr(), S, mb_h, mb_w, int(alpha_off), int(beta_off),
-        _build.stream_ptr(y.device))
+        _row_sync(2 * S * mb_h, y.device).data_ptr(), S, mb_h, mb_w,
+        int(alpha_off), int(beta_off), _build.stream_ptr(y.device))
     _build.check(code, "x264t_deblock")
     launches["deblock"] += 1
     return oy, ou, ov
@@ -589,7 +598,8 @@ def deblock_wave_luma_cuda(y, tc0y, eny, uiy, aly, bly, mb_w: int,
                    (128, 8, 8, 8, 8))
     oy = _copy(y)
     code = _build.lib().x264t_deblock_wave_luma(
-        oy.data_ptr(), *(t.data_ptr() for t in lanes), S, mb_h, mb_w, K,
+        oy.data_ptr(), *(t.data_ptr() for t in lanes),
+        _row_sync(S * mb_h, y.device).data_ptr(), S, mb_h, mb_w, K,
         _build.stream_ptr(y.device))
     _build.check(code, "x264t_deblock_wave_luma")
     launches["deblock_wave_luma"] += 1
@@ -611,8 +621,9 @@ def deblock_wave_chroma_cuda(u, v, tcc, enc, uic, alc, blc, mb_w: int,
                    (32, 4, 4, 4, 4))
     ou, ov = _copy(u), _copy(v)
     code = _build.lib().x264t_deblock_wave_chroma(
-        ou.data_ptr(), ov.data_ptr(), *(t.data_ptr() for t in lanes), S,
-        mb_h, mb_w, K2 // 2, _build.stream_ptr(u.device))
+        ou.data_ptr(), ov.data_ptr(), *(t.data_ptr() for t in lanes),
+        _row_sync(S * mb_h, u.device).data_ptr(), S, mb_h, mb_w, K2 // 2,
+        _build.stream_ptr(u.device))
     _build.check(code, "x264t_deblock_wave_chroma")
     launches["deblock_wave_chroma"] += 1
     return ou, ov

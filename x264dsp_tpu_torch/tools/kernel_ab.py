@@ -19,9 +19,10 @@ wrapper's checks and the launch, takes longer than the kernel, this is
 the host's time) and the kernel's own device ms per launch from
 torch.profiler, for K1 and K4 (R = 16), for K3
 on a P-type and an all-intra frame batch, for K2a and K2b, for K5a and
-K5b on the P-type batch's lanes and for K6 on the longest diagonal of
-that batch (480 regions, gathered as chip_smoke.py gathers them); K3's
-us per critical-path MB step (ms / (mb_w + 2 mb_h - 2)) and its us per
+K5b on the lanes of both batches and for K6 on the longest diagonal of
+the P-type batch (480 regions, gathered as chip_smoke.py gathers them);
+K3's, K5a's and K5b's us per critical-path MB step (ms / (mb_w + 2 mb_h
+- 2)), and K3's us per
 MB on one MB row of the P-type batch (steps without handoffs) and on one
 MB column (each step after a handoff from the row above); a digest of
 each kernel's output, which must be equal across checkouts; bounds:
@@ -35,7 +36,8 @@ and its device time). With --rate, also the packed-SAD rate that the
 probe reaches on the card (its build needs ``_build.compile_source``, so
 DIR must be a checkout that has it). With --ptxas, also the registers,
 stack, shared memory and spills that ``nvcc -Xptxas -v`` reports for the
-SAD, windows (K2a, K2b) and deblock (K3, K5a, K5b, K6) sources; with
+SAD, windows (K2a, K2b) and deblock (K3, K5a, K5b, K6) sources, and
+the deblock kernels' registers, stack and spills in the JSON line; with
 --sass, each SAD kernel's SASS opcode counts (``cuobjdump -sass``): the
 whole function, its largest loop body and its instructions per packed
 sum.
@@ -55,6 +57,9 @@ import numpy as np
 
 W, H, S, R = 1920, 1088, 8, 16
 HBM_BYTES_S = 3.35e12        # H100 SXM data sheet
+# the row-pipeline deblock kernels (K3, K5a, K5b) and K6
+DEBLOCK_KERNELS = ("deblock_kernel", "deblock_wave_luma_kernel",
+                   "deblock_wave_chroma_kernel", "filter_regions_kernel")
 
 
 def digest(*ts) -> str:
@@ -106,11 +111,13 @@ def device_ms(fn, kernel: str, reps: int) -> float:
     return sum(e.time_range.elapsed_us() for e in ev) / len(ev) / 1e3
 
 
-def ptxas(root: Path, build) -> list:
-    """`nvcc -Xptxas -v` on the SAD, windows and deblock sources: the kernel
-    lines (the SAD kernels' shared memory is dynamic: ptxas shows 0)."""
+def ptxas(root: Path, build,
+          names=("me_sad.cu", "deblock.cu", "windows.cu")) -> list:
+    """`nvcc -Xptxas -v` on the SAD, windows and deblock sources (or
+    `names`): the kernel lines (the SAD kernels' shared memory is dynamic:
+    ptxas shows 0)."""
     out = []
-    for name in ("me_sad.cu", "deblock.cu", "windows.cu"):
+    for name in names:
         obj = build.BUILD_DIR / f"ptxas_{name}.o"
         obj.parent.mkdir(parents=True, exist_ok=True)
         flags = [f for f in build.NVCC_FLAGS if f not in ("-shared",)]
@@ -120,8 +127,35 @@ def ptxas(root: Path, build) -> list:
         if r.returncode != 0:
             sys.exit(f"nvcc failed on {name}:\n{r.stderr}")
         out += [f"{name}: {line.strip()}" for line in r.stderr.splitlines()
-                if "Compiling entry" in line or "registers" in line
-                or "spill" in line]
+                if "Compiling entry" in line or "Function properties" in line
+                or "registers" in line or "spill" in line]
+    return out
+
+
+def ptxas_usage(lines: list, kernels) -> dict:
+    """Registers, stack frame and spill bytes of each named kernel, from
+    ptxas's lines (as `ptxas` returns them): {kernel: {"registers": n,
+    "stack": bytes, "spill_stores": bytes, "spill_loads": bytes}}."""
+    import re
+    out, cur = {}, None
+    for line in lines:
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)", line)
+        if m:
+            cur = next((k for k in kernels
+                        if f"{len(k)}{k}" in m.group(1)), None)
+            continue
+        if cur is None:
+            continue
+        rec = out.setdefault(cur, {})
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            rec.update(stack=int(m[1]), spill_stores=int(m[2]),
+                       spill_loads=int(m[3]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            rec["registers"] = int(m[1])
     return out
 
 
@@ -299,16 +333,24 @@ def main(argv=None) -> None:
     rec["chroma_windows_bound_bytes_ms"] = \
         (refc.numel() * 4 + out.numel()) / HBM_BYTES_S * 1e3
     del refc, out
-    # K5a / K5b from the P-type batch's lanes
-    luma_l, chroma_l = DB.wave_lanes(*p_args[3:])
-    for name, fn, a in (
-            ("deblock_wave_luma", DB.deblock_wave_luma_cuda,
-             (y, *luma_l, mb_w, mb_h)),
-            ("deblock_wave_chroma", DB.deblock_wave_chroma_cuda,
-             (u, v, *chroma_l, mb_w, mb_h))):
-        timed(name, lambda f=fn, a=a: f(*a))
-        rec[f"{name}_digest"] = digest(*((fn(*a),) if name.endswith("luma")
-                                         else fn(*a)))
+    # K5a / K5b from the lanes of the P-type and the all-intra batch, and
+    # their us per critical-path MB step
+    lanes = {tag: DB.wave_lanes(*a[3:]) for tag, a in (("P", p_args),
+                                                         ("I", i_args))}
+    for tag, (luma_l, chroma_l) in lanes.items():
+        for name, fn, a in (
+                ("deblock_wave_luma", DB.deblock_wave_luma_cuda,
+                 (y, *luma_l, mb_w, mb_h)),
+                ("deblock_wave_chroma", DB.deblock_wave_chroma_cuda,
+                 (u, v, *chroma_l, mb_w, mb_h))):
+            key = f"{name}[{tag}]"
+            ms = timed(key, lambda f=fn, a=a: f(*a))
+            rec[f"{key}_us_per_step"] = 1e3 * ms / steps
+            rec[f"{key}_device_us_per_step"] = \
+                1e3 * rec[f"{key}_device_ms"] / steps
+            rec[f"{key}_digest"] = digest(*((fn(*a),) if name.endswith(
+                "luma") else fn(*a)))
+    luma_l, chroma_l = lanes["P"]
     # K6 on the longest diagonal of all streams (S x 60 = 480 regions)
     ys, xs = (torch.as_tensor(a, device=dev)
               for a in DB.diag_slots(mb_w, mb_h))
@@ -334,8 +376,10 @@ def main(argv=None) -> None:
     if hasattr(me_sad, "check_pixels"):
         rec.update(range_check(me_sad, t, rng, mb_w, mb_h, args.reps))
     if args.ptxas:
-        for line in ptxas(root, _build):
+        lines = ptxas(root, _build)
+        for line in lines:
             print(line)
+        rec["ptxas"] = ptxas_usage(lines, DEBLOCK_KERNELS)
     if args.sass:
         for name, v in sad_sass(_build, probe).items():
             print(f"sass {name}: {json.dumps(v)}")
