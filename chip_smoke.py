@@ -23,7 +23,10 @@ Phases (any failure exits non-zero):
      CAVLC with the device packer): the main path on a 64x48 clip and
      faster-1ref (HEX, subme 4, partitions) on a 64x64 split-motion clip
      (S = 2, keyint 4, 6 frames each): identical Annex-B bytes, also with
-     the slots on the wave and on the region deblock route;
+     the slots on the wave and on the region deblock route; and on a
+     64x48 clip whose two streams differ in detail, CRF 30 with UMH and
+     subme 0, and ABR at 200 kbit/s with ESA, subme 2 and partitions:
+     identical bytes and per-stream QPs;
   4. the main path: BatchEncoder at 1920x1088, S = 8, QP 26, keyint 50,
      CAVLC, DIA, subme 1, one I slot and four P slots of a synthetic clip;
      prints fps and the per-stage split, and holds the device payload of
@@ -36,8 +39,15 @@ Phases (any failure exits non-zero):
      and three P slots, the I slot and the first P slot on the wave route,
      the second P slot on the region route, the third on the default:
      the bytes of phase 4's first four slots, K5a and K5b launched twice
-     and K6 once per diagonal.
-Phases 4 to 6 each set the launch counters to 0 just before they drive
+     and K6 once per diagonal;
+  7. v2: the BatchEncoder's per-stream rate control at full width, CRF 23
+     (x264's default) with the ESA search and otherwise the main path's
+     settings, one I and two P slots of the synthetic clip with a luma
+     noise scale per stream, profiled; holds the device payload of every
+     slot, every stream with its own slice header and QP, to the host C++
+     writers, prints each stream's QP per slot (two streams must differ in
+     some slot), the stage split with the lowres cost pass and the fps.
+Phases 4 to 7 each set the launch counters to 0 just before they drive
 the encoder and read them just after; a kernel of the path that was
 never launched fails the run. The line before the last is the kernels'
 JSON record; the last line is {"ok": true, "device": {...}}. Imports
@@ -357,13 +367,13 @@ def kernel_checks():
     return rec
 
 
-def small_clip(w, h, n, seed):
+def small_clip(w, h, n, seed, sigma=2.0):
     rng = np.random.default_rng(seed)
     yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
     frames = []
     for t in range(n):
         y = (110 + 60 * np.sin((xx + 2 * t) / 13.0) * np.cos(yy / 17.0)
-             + rng.normal(0, 2.0, (h, w))).clip(0, 255).astype(np.uint8)
+             + rng.normal(0, sigma, (h, w))).clip(0, 255).astype(np.uint8)
         u = (120 + 30 * np.sin((xx[::2, ::2] + t) / 23.0)).clip(
             0, 255).astype(np.uint8)
         v = (128 + 30 * np.cos((yy[::2, ::2] + t) / 29.0)).clip(
@@ -409,10 +419,12 @@ def n_partitioned(summary) -> int:
 
 def card_vs_cpu():
     """Phase 3: identical bytes from the GPU and the CPU BatchEncoder, for
-    the main path and for faster-1ref."""
+    the main path, faster-1ref and the two rate-controlled settings."""
     import torch
     import x264dsp_tpu_torch as xtt
-    from x264dsp_tpu_torch.tools.mainpath import (faster_1ref_param,
+    from x264dsp_tpu_torch.tools.mainpath import (abr_esa_param,
+                                                  crf_umh_param,
+                                                  faster_1ref_param,
                                                   main_path_param,
                                                   split_motion_clip)
     S, n = 2, 6
@@ -423,27 +435,42 @@ def card_vs_cpu():
                       for i in range(3)) for t in range(n)]
     cpu = torch.device("cpu")
     split = [split_motion_clip(64, 64, cpu, seed) for seed in (11, 13)]
+    detail = stacked([small_clip(64, 48, n, 11 + s, sigma)
+                      for s, sigma in enumerate((2.0, 8.0))])
+    # label, size, parameters, clip, with the deblock routes
     configs = (
         ("main path", 64, 48, main_path_param,
-         stacked([small_clip(64, 48, n, 11 + s) for s in range(S)])),
+         stacked([small_clip(64, 48, n, 11 + s) for s in range(S)]), True),
         ("faster-1ref", 64, 64, faster_1ref_param,
          stacked([[tuple(p.numpy() for p in f(t)) for t in range(n)]
-                  for f in split])))
-    for label, w, h, make, batches in configs:
-        out = {}
-        for dev, route in (("cuda", None), ("cpu", None), ("cuda", "wave"),
-                           ("cuda", "region")):
+                  for f in split]), True),
+        ("crf30-umh-subme0", 64, 48,
+         lambda w, h, qp, keyint: crf_umh_param(w, h, keyint), detail, False),
+        ("abr200-esa-subme2-parts", 64, 48,
+         lambda w, h, qp, keyint: abr_esa_param(w, h, keyint), detail, False))
+    for label, w, h, make, batches, routes in configs:
+        out, qps = {}, {}
+        runs = (("cuda", None), ("cpu", None))
+        if routes:
+            runs += (("cuda", "wave"), ("cuda", "region"))
+        for dev, route in runs:
             be = xtt.BatchEncoder(make(w, h, 26, 4), S, device=dev)
-            slots, _, summary = encode(be, batches, routes=[route] * n)
+            qps[dev, route] = []
+            slots, _, summary = encode(
+                be, batches, routes=[route] * n,
+                after_slot=lambda t, b=be, q=qps[dev, route]: q.append(
+                    b.last_qps))
             out[dev, route] = joined(slots)
-        same = out["cuda", None] == out["cpu", None]
-        routes_same = (out["cuda", "wave"] == out["cuda", None]
-                       and out["cuda", "region"] == out["cuda", None])
+        same = (out["cuda", None] == out["cpu", None]
+                and qps["cuda", None] == qps["cpu", None])
+        routes_same = all(out[k] == out["cuda", None] for k in out)
         print(f"card vs CPU, {label} {w}x{h} S={S} keyint 4, {n} frames: "
               f"bytes {[len(b) for b in out['cuda', None]]} "
-              f"identical={same}, wave and region routes "
-              f"identical={routes_same}, partitioned MBs "
-              f"{n_partitioned(summary)}")
+              f"identical={same}"
+              + (f", wave and region routes identical={routes_same}"
+                 if routes else "")
+              + f", partitioned MBs {n_partitioned(summary)}, stream QPs "
+              f"per slot {qps['cuda', None]}")
         if not same or not all(out["cpu", None]):
             fail(f"the card's Annex-B bytes differ from the CPU's ({label})")
         if not routes_same:
@@ -455,26 +482,40 @@ def psnr(a, b) -> float:
     return 99.0 if mse == 0 else 10 * np.log10(255.0 ** 2 / mse)
 
 
-def drive(label, param, batches, path_kernels, routes=None):
-    """Drive one path through the BatchEncoder on the card, unprofiled:
-    the launch counters are set to 0 just before and read just after.
-    Fails unless every kernel of the path launched, every stream is
-    non-empty and the worst luma PSNR is at least 30 dB. Returns the
-    launches, the encoder's summary and the per-slot bytes."""
+def drive(label, param, batches, path_kernels, routes=None,
+          profile=False, after_slot=None, keep_syntax=False):
+    """Drive one path through the BatchEncoder on the card, unprofiled
+    unless `profile`: the launch counters are set to 0 just before and
+    read just after. `after_slot(be, t)` runs after slot t's step, outside
+    the timed wall (keep_syntax: the encoder keeps each slot's syntax for
+    it). Fails unless every kernel of the path launched, every
+    stream is non-empty and the worst luma PSNR is at least 30 dB. Returns
+    the launches, the encoder's summary, the per-slot bytes and the
+    encoder."""
     import torch
     import x264dsp_tpu_torch as xtt
     S = batches[0][0].shape[0]
     torch.cuda.synchronize()
     xtt.reset_kernel_launches()
-    be = xtt.BatchEncoder(param, S)
+    be = xtt.BatchEncoder(param, S, profile=profile)
+    be.keep_syntax = keep_syntax
+    checks = [0.0]
+
+    def timed_check(t):
+        t1 = time.perf_counter()
+        after_slot(be, t)
+        checks[0] += time.perf_counter() - t1
     t0 = time.perf_counter()
-    slots, recons, summary = encode(be, batches, routes=routes)
-    wall = time.perf_counter() - t0
+    slots, recons, summary = encode(
+        be, batches, routes=routes,
+        after_slot=timed_check if after_slot is not None else None)
+    wall = time.perf_counter() - t0 - checks[0]
     launches = xtt.kernel_launches()
     streams = joined(slots)
-    print(f"{label} {W}x{H} S={S} QP {QP}: 1 I + {len(batches) - 1} P slots "
-          f"in {wall:.3f} s = {S * len(batches) / wall:.3f} fps "
-          f"(bytes/stream {[len(b) for b in streams]})")
+    print(f"{label} {W}x{H} S={S}: 1 I + {len(batches) - 1} P slots "
+          f"in {wall:.3f} s = {S * len(batches) / wall:.3f} fps"
+          + (" (profiled: a device sync at each stage)" if profile else "")
+          + f" (bytes/stream {[len(b) for b in streams]})")
     print(f"kernel launches in {label}: {launches}")
     print(f"{label} MB types: {summary['mb_types']}")
     missing = [k for k in path_kernels if launches[k] <= 0]
@@ -490,7 +531,7 @@ def drive(label, param, batches, path_kernels, routes=None):
           f"{len(recons)} slots x {S} streams")
     if worst < 30.0 or min(len(b) for b in streams) == 0:
         fail(f"{label} output is wrong (empty stream or PSNR < 30 dB)")
-    return launches, summary, slots
+    return launches, summary, slots, be
 
 
 def main_path(n_p: int = 4):
@@ -502,9 +543,9 @@ def main_path(n_p: int = 4):
     frame = synth_clip(W, H, torch.device("cuda"))
     batches = [stacked_slot(frame, t, S_MAIN) for t in range(1 + n_p)]
     param = main_path_param(W, H, QP, KEYINT)
-    launches, _, slots = drive("main path", param, batches,
-                               ("sad_surface16", "luma_windows",
-                                "chroma_windows", "deblock"))
+    launches, _, slots, _ = drive("main path", param, batches,
+                                  ("sad_surface16", "luma_windows",
+                                   "chroma_windows", "deblock"))
 
     # the same slots once more with stage timing (synchronizes the device
     # at each stage); between the steps, outside the timed stages, the I
@@ -524,17 +565,23 @@ def main_path(n_p: int = 4):
     profiled, _, _ = encode(be, batches, after_slot=check)
     if profiled != slots:
         fail("the profiled main-path run wrote other bytes")
+    print_stages("", be, ("encode", "cavlc", "deblock", "ref_planes",
+                          "pull"))
+    return launches, slots
+
+
+def print_stages(label, be, stages):
+    """The mean per-stage ms of a profiled BatchEncoder's I and P slots."""
     for kind, name in ((2, "I"), (0, "P")):
         rows = [tm for st, tm in be.slot_times if st == kind]
         if not rows:
             continue
         avg = {k: 1000 * sum(r.get(k, 0.0) for r in rows) / len(rows)
-               for k in ("encode", "cavlc", "deblock", "ref_planes", "pull")}
+               for k in stages}
         total = sum(avg.values())
-        print(f"{name} slot ms (mean of {len(rows)}): "
+        print(f"{label}{name} slot ms (mean of {len(rows)}): "
               + " ".join(f"{k} {v:.2f}" for k, v in avg.items())
               + f" | total {total:.2f}")
-    return launches, slots
 
 
 def faster_path(n_p: int = 2):
@@ -547,7 +594,7 @@ def faster_path(n_p: int = 2):
                                                   stacked_slot)
     frame = split_motion_clip(W, H, torch.device("cuda"))
     batches = [stacked_slot(frame, t, S_MAIN) for t in range(1 + n_p)]
-    launches, summary, _ = drive(
+    launches, summary, _, _ = drive(
         "faster-1ref", faster_1ref_param(W, H, QP, KEYINT), batches,
         ("sad_surfaces_8x8", "luma_windows", "chroma_windows", "deblock"))
     if n_partitioned(summary) <= 0:
@@ -565,7 +612,7 @@ def routes_path(main_slots):
     routes = ("wave", "wave", "region", None)
     frame = synth_clip(W, H, torch.device("cuda"))
     batches = [stacked_slot(frame, t, S_MAIN) for t in range(len(routes))]
-    launches, _, slots = drive(
+    launches, _, slots, _ = drive(
         "deblock routes", main_path_param(W, H, QP, KEYINT), batches,
         ("deblock_wave_luma", "deblock_wave_chroma", "filter_regions",
          "deblock"), routes=routes)
@@ -580,6 +627,44 @@ def routes_path(main_slots):
           f"{len(routes)} slots; launches {got}")
     if got != want:
         fail(f"deblock route launches {got}, expected {want}")
+    return launches
+
+
+def v2_path(n_p: int = 2):
+    """Phase 7: per-stream CRF 23 with the ESA search at 1080p, 8 streams
+    whose clips differ in detail, profiled; every slot's device payloads
+    are held to the host C++ writers with each stream's own slice header
+    and QP. The QPs of the I and the first P slot come from the rate
+    controls' start values (each learns a slot's size one slot late), so
+    the streams' QPs part from the second P slot on."""
+    import torch
+    from x264dsp_tpu_torch import params as P
+    from x264dsp_tpu_torch.tools.mainpath import (crf_param, detail_clips,
+                                                  payload_vs_writers,
+                                                  stacked_slot)
+    frames = detail_clips(W, H, torch.device("cuda"), S_MAIN)
+    batches = [stacked_slot(frames, t, S_MAIN) for t in range(1 + n_p)]
+    param = crf_param(W, H, 23.0, KEYINT)
+    param.analyse.i_me_method = P.ME_ESA
+
+    qps = []
+
+    def hold(be, t):
+        qps.append(be.last_qps)
+        bits = payload_vs_writers(be)
+        print(f"v2: device payload == host C++ writers, slot {t} "
+              f"({'I' if t == 0 else 'P'}), {S_MAIN} streams, QPs "
+              f"{be.last_slot['qps']}: bits {bits}")
+    launches, _, _, be = drive(
+        "v2 (CRF 23, ESA)", param, batches,
+        ("sad_surfaces_8x8", "luma_windows", "chroma_windows", "deblock"),
+        profile=True, after_slot=hold, keep_syntax=True)
+    for t, q in enumerate(qps):
+        print(f"v2 slot {t} ({'I' if t == 0 else 'P'}) stream QPs {q}")
+    if not any(len(set(q)) > 1 for q in qps):
+        fail("v2: every stream got the same QP in every slot")
+    print_stages("v2 ", be, ("lowres", "encode", "cavlc", "deblock",
+                             "ref_planes", "pull"))
     return launches
 
 
@@ -609,6 +694,7 @@ def main() -> None:
     routed = routes_path(main_slots)
     for k in ("deblock_wave_luma", "deblock_wave_chroma", "filter_regions"):
         launches[k] = routed[k]
+    v2_path()
     for k in kernels:
         k["launches"] = launches[k["name"].split("[")[0]]
     if "jax" in sys.modules:

@@ -32,13 +32,14 @@ W, H, S, N = 64, 48, 2, 5
 ROUTES = ("wave", "region", "wave", "region", None)   # I P P P I
 
 
-def _clip(seed):
+def _clip(seed, sigma=2.0):
+    """N frames of a moving texture with luma noise of deviation sigma."""
     rng = np.random.default_rng(seed)
     yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
     frames = []
     for t in range(N):
         y = (110 + 60 * np.sin((xx + 2 * t) / 13.0) * np.cos(yy / 17.0)
-             + rng.normal(0, 2.0, (H, W))).clip(0, 255).astype(np.uint8)
+             + rng.normal(0, sigma, (H, W))).clip(0, 255).astype(np.uint8)
         u = (120 + 30 * np.sin((xx[::2, ::2] + t) / 23.0)).clip(
             0, 255).astype(np.uint8)
         v = (128 + 30 * np.cos((yy[::2, ::2] + t) / 29.0)).clip(
@@ -64,9 +65,10 @@ def _params(pkg=xtt):
 PACKED = ("payload", "bits", "ov", "n_skip", "rows")
 
 
-def _run(be, clips, routes=None, slots=None):
+def _run(be, clips, routes=None, slots=None, qps=None):
     """Encode the clips; `routes` sets the port's deblock route per slot,
-    `slots` collects each slot's device-CAVLC outputs."""
+    `slots` collects each slot's device-CAVLC outputs and `qps` the port's
+    per-stream slice QPs."""
     streams, recons = [b""] * S, []
     for t in range(N + 1):
         pics = ([xt.Picture.from_planes(*clips[s][t]) for s in range(S)]
@@ -74,6 +76,8 @@ def _run(be, clips, routes=None, slots=None):
         if routes is not None and t < N:
             be.deblock_route = routes[t]
         out = be.encode_batch(pics)
+        if t < N and qps is not None:
+            qps.append(be.last_qps)
         if t < N and slots is not None:
             slots.append({k: np.asarray(be._pending["out"][k])
                           for k in PACKED})
@@ -209,20 +213,29 @@ def test_cpu_is_used_only_when_asked(monkeypatch):
 
 @pytest.mark.parametrize("change", [
     {"b_cabac": 1}, {"i_frame_reference": 2}, {"i_slice_count": 2},
-    {"analyse.i_me_method": P.ME_UMH}, {"analyse.i_me_method": P.ME_ESA},
-    {"analyse.i_subpel_refine": 0},
+    {"rc.i_rc_method": P.RC_CRF, "rc.i_aq_mode": P.AQ_VARIANCE},
+    {"rc.i_rc_method": P.RC_CRF, "rc.i_vbv_buffer_size": 1000,
+     "rc.i_vbv_max_bitrate": 1000},
+    {"i_slice_max_mbs": 4},
     {"analyse.i_noise_reduction": 100}, {"i_cqm_preset": 1},
-    {"rc.i_rc_method": P.RC_CRF}])
+    {"rc.i_rc_method": P.RC_ABR}])
 def test_validation_errors(change):
-    p = _params()
-    (path, val), = change.items()
-    obj = p
-    *parents, leaf = path.split(".")
-    for name in parents:
-        obj = getattr(obj, name)
-    setattr(obj, leaf, val)
-    with pytest.raises(xtt.ValidationError):
-        xtt.BatchEncoder(p, S, device="cpu")
+    """Settings that the JAX BatchEncoder refuses: the port's refuses them
+    too (AQ and VBV are cleared under CQP, so those cases set CRF; ABR
+    needs a bitrate). Constructing either encoder compiles nothing."""
+    for pkg in (xtt, xt):
+        p = _params(pkg)
+        for path, val in change.items():
+            obj = p
+            *parents, leaf = path.split(".")
+            for name in parents:
+                obj = getattr(obj, name)
+            setattr(obj, leaf, val)
+        with pytest.raises(pkg.params.ValidationError):
+            if pkg is xtt:
+                xtt.BatchEncoder(p, S, device="cpu")
+            else:
+                xt.BatchEncoder(p, S)
 
 
 def test_picture_count_checked():

@@ -609,3 +609,37 @@ def test_batch_encoder_routes_on_the_card(cuda):
     assert launches["deblock_wave_chroma"] == 2
     assert launches["filter_regions"] == 4 + 2 * 3 - 2
     assert launches["deblock"] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["crf_umh_param", "abr_esa_param"])
+def test_rate_controlled_batch_encoder_card_equals_cpu(cuda, name):
+    """Per-stream CRF / ABR with the UMH / ESA search on a 64x48 clip whose
+    two streams differ in detail, I P P P I P, pipelined: the card's
+    Annex-B bytes and per-stream QPs equal the CPU's, and the two
+    streams' QPs differ in some slot."""
+    from x264dsp_tpu_torch.tools import mainpath
+    S, w, h, n = 2, 64, 48, 6
+    rng = np.random.default_rng(9)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    frames = [tuple(torch.as_tensor(np.stack(a)) for a in zip(*[
+        ((110 + 60 * np.sin((xx + 2 * t) / 13.0) * np.cos(yy / 17.0)
+          + rng.normal(0, sigma, (h, w))).clip(0, 255).astype(np.uint8),
+         np.full((h // 2, w // 2), 120 + t, np.uint8),
+         np.full((h // 2, w // 2), 128 - t, np.uint8))
+        for sigma in (2.0, 8.0)])) for t in range(n)]
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        be = xtt.BatchEncoder(getattr(mainpath, name)(w, h, 4), S,
+                              device=dev)
+        out, qps = [b""] * S, []
+        for item in frames + [None]:
+            for s, nl in enumerate(be.encode_batch(item) or []):
+                out[s] += b"".join(nal.payload for nal in nl)
+            if item is not None:
+                qps.append(be.last_qps)
+        be.close()
+        runs[dev] = (out, qps)
+    assert runs["cuda"] == runs["cpu"]
+    assert all(runs["cpu"][0])
+    assert any(qps[0] != qps[1] for qps in runs["cpu"][1])

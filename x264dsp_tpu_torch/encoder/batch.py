@@ -1,13 +1,16 @@
-"""Batched multi-stream encoder — port of x264dsp_tpu/encoder/batch.py
-(CQP; the per-stream CRF/ABR of its v2 is not ported yet). P analysis:
-DIA or HEX full-pel search, subme 1-11, with or without the
-16x8/8x16/8x8 partitions (X264_ANALYSE_PSUB16x16), one reference.
+"""Batched multi-stream encoder — port of x264dsp_tpu/encoder/batch.py:
+CQP, or its v2 per-stream CRF/ABR. P analysis: DIA, HEX, UMH or ESA
+full-pel search, subme 0-11, with or without the 16x8/8x16/8x8
+partitions (X264_ANALYSE_PSUB16x16), one reference. The BatchEncoder
+takes the parameter sets that the JAX one takes and refuses the others.
 
 S independent streams encode in lockstep, one batched frame step per
 slot on the chosen device (every tensor has a leading stream axis).
 Output is pipelined one slot behind input, like the JAX BatchEncoder:
 encode_batch(pics) returns the PREVIOUS slot's NALs (None on the first
-call) and encode_batch(None) drains. The frame step packs each slot's
+call) and encode_batch(None) drains. As there, a slot's QP is decided
+before the previous slot is pulled, so the rate control of CRF/ABR sees
+each slot's size one slot late. The frame step packs each slot's
 CAVLC slice payloads on the device (entropy/cavlc_device.py); the host
 pulls the bit counts, the overflow flags and the stats vector, then a
 power-of-two bucket of payload bytes, and frames the NALs. The
@@ -30,7 +33,9 @@ from .. import params as P
 from ..api import NAL
 from ..entropy import cavlc_device as CD
 from ..entropy.bitstream import BitWriter, nal_unit
+from ..ops import mc as MC
 from . import core as C
+from . import slicetype as ST
 from .ratecontrol import RateControl
 from .sets import PPS, SPS
 
@@ -56,9 +61,8 @@ class BatchEncoder:
         if p.b_cabac:
             raise P.ValidationError("BatchEncoder is CAVLC-only "
                                     "(use Encoder for CABAC streams)")
-        if p.rc.i_rc_method != P.RC_CQP:
-            raise P.ValidationError("the PyTorch BatchEncoder is CQP-only "
-                                    "(per-stream CRF/ABR is not ported)")
+        if p.rc.i_rc_method not in (P.RC_CQP, P.RC_CRF, P.RC_ABR):
+            raise P.ValidationError("unknown rc method")
         if p.rc.i_vbv_buffer_size:
             raise P.ValidationError("BatchEncoder has no VBV")
         if p.rc.i_aq_mode != P.AQ_NONE and p.rc.f_aq_strength > 0:
@@ -72,16 +76,11 @@ class BatchEncoder:
             raise P.ValidationError("BatchEncoder has no NR")
         if p.i_cqm_preset != P.CQM_FLAT:
             raise P.ValidationError("BatchEncoder v1 is flat-CQM")
-        if min(max(p.analyse.i_me_method, 0), 3) not in (P.ME_DIA, P.ME_HEX):
-            raise P.ValidationError("the PyTorch BatchEncoder runs the DIA "
-                                    "or HEX search (UMH/ESA not ported)")
-        if p.analyse.i_subpel_refine < 1:
-            raise P.ValidationError("the PyTorch BatchEncoder runs subme "
-                                    "1-11 (subme 0 not ported)")
         self.device = resolve_device(device)
         self.deblock_route = None
-        # keep_syntax: hold the newest slot's device syntax, header and QP
-        # in last_slot (tools/mainpath.payload_vs_writers reads them)
+        # keep_syntax: hold the newest slot's device syntax and each
+        # stream's slice header and QP in last_slot
+        # (tools/mainpath.payload_vs_writers reads them)
         self.keep_syntax = False
         self.last_slot = None
         self.S = int(n_streams)
@@ -90,8 +89,21 @@ class BatchEncoder:
         self.mb_w = self.sps.i_mb_width
         self.mb_h = self.sps.i_mb_height
         # CQP: the I/P QPs (qp_constant with the ip offset) come from the
-        # shared host RateControl, as in the JAX BatchEncoder
+        # shared host RateControl, as in the JAX BatchEncoder. CRF/ABR
+        # (its v2, batch.py:70-80): one RateControl per stream, started
+        # with the stream's frame SATD from the lowres cost pass and ended
+        # with the stream's bits when the slot is pulled
         self.rc = RateControl(p, self.mb_w * self.mb_h)
+        self.per_stream_rc = p.rc.i_rc_method != P.RC_CQP
+        self.rcs = [RateControl(p, self.mb_w * self.mb_h)
+                    for _ in range(self.S if self.per_stream_rc else 0)]
+        self.prev_low4 = None
+        # the lowres frame cost counts the edge-block ring only where the
+        # spatial distribution matters or there is no interior
+        self.lowres_edges = bool(p.rc.b_mb_tree or p.rc.i_vbv_buffer_size
+                                 or self.mb_w <= 2 or self.mb_h <= 2)
+        # the streams' slice QPs of the newest slot
+        self.last_qps = None
         self.i_frame = 0
         self.frame_num = 0
         self.idr_pic_id = 0
@@ -106,7 +118,9 @@ class BatchEncoder:
         self._cap = -(-cap // 4) * 4
         self.clock = C.StageClock(self.device, profile)
         # profile: per-slot (slice type, {stage: seconds}) for the stages
-        # encode, cavlc (device packer), deblock, ref_planes, pull (payload)
+        # lowres (the slice QPs, with CRF/ABR's lowres cost pass, and the
+        # slice headers), encode, cavlc (device packer), deblock,
+        # ref_planes, pull (payload)
         self.slot_times = []
 
     # ------------------------------------------------------------------
@@ -128,7 +142,9 @@ class BatchEncoder:
                            min(p.rc.i_qp_max, P.QP_MAX_SPEC)))
 
     def frame_cfg(self, qp: int) -> dict:
-        """The static settings of core.frame_step for a slot at `qp`."""
+        """The static settings of core.frame_step for a slot at `qp` (with
+        per-stream QPs, the largest: a stream below the deblock threshold
+        then filters with zero alpha/beta, a no-op, batch.py:266-270)."""
         p = self.param
         return dict(mb_w=self.mb_w, mb_h=self.mb_h,
                     me_range=p.analyse.i_me_range,
@@ -183,6 +199,11 @@ class BatchEncoder:
             return nals
         out_nals = list(self._pool.map(one, range(S)))
         slice_type = rec["slice_type"]
+        if self.per_stream_rc:
+            # the stream's bits of the slot, SPS/PPS included (batch.py:162)
+            for s, nl in enumerate(out_nals):
+                self.rcs[s].end(slice_type,
+                                8 * sum(len(n.payload) for n in nl))
         self.frames[slice_type] += self.S
         self.bytes[slice_type] += sum(len(n.payload) for nl in out_nals
                                       for n in nl)
@@ -222,46 +243,90 @@ class BatchEncoder:
         return out
 
     # ------------------------------------------------------------------
+    def slot_qps(self, fy, slice_type: int, is_idr: bool) -> list:
+        """The S streams' slice QPs of a slot. CQP: slot_qp for every
+        stream. CRF/ABR (batch.py:226-246): each stream's frame SATD from
+        one lowres cost pass over the batch (the I cost on an IDR, else
+        the P cost against the previous slot's source,
+        x264_rc_analyse_slice, slicetype.c:605), its RateControl's QP
+        clipped to the range."""
+        if not self.per_stream_rc:
+            return [self.slot_qp(slice_type)] * self.S
+        p = self.param
+        low4 = MC.lowres_planes(fy)
+        prev = low4 if is_idr or self.prev_low4 is None else self.prev_low4
+        vec = ST.frame_summary(low4[:, 0], prev, self.mb_w, self.mb_h,
+                               self.lowres_edges)[:, :2].cpu().numpy()
+        self.prev_low4 = low4
+        satd = vec[:, 0] if is_idr else vec[:, 1]
+        return [int(np.clip(rc.start(slice_type, int(satd[s])),
+                            p.rc.i_qp_min, min(p.rc.i_qp_max, P.QP_MAX_SPEC)))
+                for s, rc in enumerate(self.rcs)]
+
+    def slot_inputs(self, slice_type: int, qps: list, idr_pic_id: int):
+        """The per-stream inputs of core.frame_step for a slot at the
+        streams' QPs `qps`: each stream's slice header, and a dict of its
+        packer slots hv / hl (S, n), qp_mb / lam (S, mb_h, mb_w) and the
+        (S,) slice_qp (batch.py:247-265). Returns (headers, inputs)."""
+        headers = []
+        for qp in qps:
+            bw = BitWriter()
+            C.write_slice_header_common(self, bw, slice_type, qp, idr_pic_id)
+            headers.append(bw.get_unaligned())
+        elems = [CD.header_elements(*h, max_slots=32) for h in headers]
+        dev = self.device
+        hv, hl = (torch.as_tensor(np.stack([e[i] for e in elems]), device=dev)
+                  for i in range(2))
+        qps_np = np.array(qps, np.int32)
+        ql = torch.as_tensor(np.stack([qps_np, C.LAMBDA_TAB[qps_np]]),
+                             device=dev)
+        grid = (self.S, self.mb_h, self.mb_w)
+        qp_mb, lam = (ql[i][:, None, None].expand(grid).contiguous()
+                      for i in range(2))
+        return headers, dict(hv=hv, hl=hl, qp_mb=qp_mb, lam=lam,
+                             slice_qp=ql[0])
+
+    # ------------------------------------------------------------------
     def encode_batch(self, pics):
         """pics: S Pictures, a stacked ((S,H,W) y, (S,H/2,W/2) u, v)
         triple of tensors or arrays, or None to drain. Returns the
         PREVIOUS slot's per-stream NAL lists (None while the pipeline
         fills)."""
-        prev = self._finish_pending()
         if pics is None:
-            return prev
+            return self._finish_pending()
         fy, fu, fv = self._stack(pics)
         p = self.param
         is_idr = self.i_frame % max(p.i_keyint_max, 1) == 0
         slice_type = P.SLICE_TYPE_I if is_idr else P.SLICE_TYPE_P
         if is_idr:
             self.frame_num = 0
-        qp = self.slot_qp(slice_type)
-        bw = BitWriter()
-        # the slice header is shared by all streams (lockstep GOP)
-        C.write_slice_header_common(self, bw, slice_type, qp,
-                                    self.idr_pic_id if is_idr else -1)
-        hv, hl = (torch.as_tensor(a, device=self.device) for a in
-                  CD.header_elements(*bw.get_unaligned(), max_slots=32))
-        qp_mb = torch.full((self.S, self.mb_h, self.mb_w), qp,
-                           dtype=torch.int32, device=self.device)
-        lam = torch.full_like(qp_mb, int(C.LAMBDA_TAB[qp]))
-        out = C.frame_step(self.frame_cfg(qp), slice_type == P.SLICE_TYPE_P,
-                           fy, fu, fv, self.refs, qp_mb, lam, qp, hv, hl,
-                           self.clock)
+        self.clock.start()
+        qps = self.slot_qps(fy, slice_type, is_idr)
+        headers, x = self.slot_inputs(slice_type, qps,
+                                      self.idr_pic_id if is_idr else -1)
+        self.clock.mark("lowres")
+        out = C.frame_step(self.frame_cfg(max(qps)),
+                           slice_type == P.SLICE_TYPE_P, fy, fu, fv,
+                           self.refs, x["qp_mb"], x["lam"], x["slice_qp"],
+                           x["hv"], x["hl"], self.clock)
+        times = {k: self.clock.times.pop(k, 0.0)
+                 for k in ("lowres", "encode", "cavlc", "deblock",
+                           "ref_planes")}
         self.refs = out["planes"]
         self.last_recon = out["recon"]
+        self.last_qps = list(qps)
         if self.keep_syntax:
-            self.last_slot = dict(out, slice_type=slice_type, qp=qp,
-                                  header=bw.get_unaligned())
+            self.last_slot = dict(out, slice_type=slice_type, qps=list(qps),
+                                  headers=headers)
+        # the previous slot is pulled after this one is launched (the JAX
+        # order, batch.py:305): its rate-control feedback comes after this
+        # slot's QPs
+        prev = self._finish_pending()
         self._pending = {"out": {k: out[k] for k in ("payload", "bits", "ov",
                                                      "n_skip", "rows",
                                                      "stats")},
                          "slice_type": slice_type, "is_idr": is_idr,
-                         "first": self.i_frame == 0,
-                         "times": {k: self.clock.times.pop(k, 0.0)
-                                   for k in ("encode", "cavlc", "deblock",
-                                             "ref_planes")}}
+                         "first": self.i_frame == 0, "times": times}
         if is_idr:
             self.idr_pic_id = (self.idr_pic_id + 1) % 65536
         self.frame_num = (self.frame_num + 1) % (

@@ -145,7 +145,9 @@ def _hist(x, n: int):
 
 def eff_qp_scan(syn, qp_mb, slice_qp, is_i: bool):
     """Decoded per-MB QP (core.py:162-176): MBs that code no residual
-    inherit the running QP in raster order (torch.cummax carry-scan)."""
+    inherit the running QP in raster order (torch.cummax carry-scan), and
+    those before a stream's first coded MB its slice QP (slice_qp an int
+    or one per stream, (S,))."""
     S = qp_mb.shape[0]
     cbp_any = (syn["cbp_luma"] | syn["cbp_chroma"]) != 0
     if is_i:
@@ -158,23 +160,26 @@ def eff_qp_scan(syn, qp_mb, slice_qp, is_i: bool):
     idx = torch.where(m, ar, -1)
     run = torch.cummax(idx, dim=1).values
     flat = qp_mb.reshape(S, -1)
-    eff = torch.where(run >= 0, flat.gather(1, run.clamp(min=0)),
-                      int(slice_qp))
+    sqp = torch.as_tensor(slice_qp, dtype=flat.dtype,
+                          device=flat.device).reshape(-1, 1)
+    eff = torch.where(run >= 0, flat.gather(1, run.clamp(min=0)), sqp)
     return eff.reshape(qp_mb.shape).to(_I32)
 
 
 def frame_step(cfg: dict, is_p: bool, fy, fu, fv, refs, qp_mb, lam_mb,
-               slice_qp: int, hv, hl, clock: StageClock):
+               slice_qp, hv, hl, clock: StageClock):
     """One batched frame slot. cfg: the static settings (mb_w, mb_h,
     me_range, mv_range, me_method, subme, partitions, dct_decimate,
     fast_pskip, use_satd, i4x4, deblock_on, deblock_route, alpha_off,
     beta_off, cqpo, cap_bytes). fy/fu/fv (S, H, W) frames on the device,
     refs (ref4, refu, refv) for a P slot, qp_mb / lam_mb (S, mb_h, mb_w)
-    int32, hv / hl the slice header as packer slots
-    (cavlc_device.header_elements). Returns a dict like the JAX fused
-    frame function's: payload (S, cap_bytes) uint8, bits, ov, n_skip (S,),
-    rows (S, mb_h), stats (S, n) int32, planes (next reference planes),
-    recon (deblocked uint8 planes), and syn (the device syntax)."""
+    int32, slice_qp the (S,) slice QPs (the per_stream_qp variant of
+    core.py:133 _fused_frame_fn), hv / hl (S, n) each stream's slice
+    header as packer slots (cavlc_device.header_elements). Returns a dict
+    like the JAX fused frame function's: payload (S, cap_bytes) uint8,
+    bits, ov, n_skip (S,), rows (S, mb_h), stats (S, n) int32, planes
+    (next reference planes), recon (deblocked uint8 planes), and syn (the
+    device syntax)."""
     mb_w, mb_h = cfg["mb_w"], cfg["mb_h"]
     dev = fy.device
     S = fy.shape[0]

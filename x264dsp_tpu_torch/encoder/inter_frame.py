@@ -1,20 +1,23 @@
 """P-frame encode over a stream batch — port of the BatchEncoder subset
 of x264dsp_tpu/encoder/inter_frame.py: ``encode_p_frame`` with one
-reference, the DIA or HEX pattern walk (me_method 0 or 1), the subpel
-refine of subme 1-11, the fast P-skip probe, and the 16x8/8x16/8x8
+reference, the DIA or HEX pattern walk (me_method 0 or 1), the UMH
+surface argmin (2) and the ESA exact-MVP wavefront (3), the subpel
+refine of subme 0-11, the fast P-skip probe, and the 16x8/8x16/8x8
 partition analysis.
 
 Every tensor carries a leading stream axis S in place of the JAX vmap.
-Without partitions the walk reads the 16x16 SAD surface in kernel K1's
-lane layout [row, dy, dx, mbx]; with partitions it reads the classic
-layout [mbx, dy, dx] of the K4 quadrant sums. The JAX CPU path walks the
-classic layout, and
+With DIA or HEX and no partitions the walk reads the 16x16 SAD surface
+in kernel K1's lane layout [row, dy, dx, mbx]; otherwise the search reads
+the classic layout [mbx, dy, dx] of the K4 quadrant sums. The JAX CPU
+path walks the classic layout, and
 tests/test_me_methods.py::test_lane_walk_twins_match_classic holds the
 two walks equal. Candidate minima update only on a strictly smaller
 cost, in candidate order, as in the JAX code (me.c's COPY*_IF_LT).
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -274,6 +277,136 @@ def decide_mvs_pattern(surf16, lanes: bool, fenc_y, wins4, lam, mb_w: int,
                                mb_w, mb_h, ranges, subme)
 
 
+def _legal_offsets(mb_w: int, mb_h: int, me_range: int, mv_range: int, dev):
+    """The MV ranges, the full-pel offsets [-R, R] and the (mb_h, mb_w,
+    dy, dx) mask of the offsets inside each MB's legal range less the
+    reference's 6-pixel border (inter_frame.py:604-614)."""
+    R = me_range
+    ranges = make_mv_ranges(mb_w, mb_h, mv_range, dev)
+    mvmin_x, mvmax_x, mvmin_y, mvmax_y = ranges
+    offs = torch.arange(-R, R + 1, device=dev, dtype=_I32)
+    ok_x = ((offs[None, :] >= ((mvmin_x >> 2) + 6)[:, None])
+            & (offs[None, :] <= ((mvmax_x >> 2) - 6)[:, None]))  # (mb_w, n)
+    ok_y = ((offs[None, :] >= ((mvmin_y >> 2) + 6)[:, None])
+            & (offs[None, :] <= ((mvmax_y >> 2) - 6)[:, None]))  # (mb_h, n)
+    return ranges, offs, ok_y[:, None, :, None] & ok_x[None, :, None, :]
+
+
+def _offset_mvs(k, n: int, R: int):
+    """Flat offset indices k (dy * n + dx) -> qpel MVs (..., 2) int32."""
+    k = k.to(_I32)
+    return torch.stack([(k % n - R) * 4, (k // n - R) * 4], -1)
+
+
+def decide_mvs_parallel(surf16, fenc_y, wins4, lam, mb_w: int, mb_h: int,
+                        me_range: int, mv_range: int, subme: int):
+    """UMH MV decision (decide_mvs_parallel, inter_frame.py:592) on the
+    classic 16x16 surface (S, mb_h, mb_w, n, n): the SAD argmin over the
+    legal offsets, a median-MVP field from those MVs, the argmin of SAD
+    plus lambda * mvbits against it (first minimum on ties), then the
+    subpel refine. Returns (S, mb_h, mb_w, 2) qpel MVs."""
+    R = me_range
+    n = 2 * R + 1
+    S = surf16.shape[0]
+    ranges, offs, ok = _legal_offsets(mb_w, mb_h, R, mv_range, surf16.device)
+    k0 = torch.argmin(torch.where(ok, surf16, BIG).reshape(
+        S, mb_h, mb_w, n * n), -1)
+    mvp = mvp_field_parallel(_offset_mvs(k0, n, R))
+    bias = mv_cost(lam[..., None, None], offs[None, :] * 4,
+                   offs[:, None] * 4, mvp[..., 0][..., None, None],
+                   mvp[..., 1][..., None, None])
+    cost = torch.where(ok, surf16 + bias, BIG).reshape(S, mb_h, mb_w, n * n)
+    k = torch.argmin(cost, -1, keepdim=True)
+    return subpel_refine_batch(_offset_mvs(k[..., 0], n, R),
+                               torch.gather(cost, -1, k)[..., 0], mvp,
+                               fenc_y, wins4, lam, mb_w, mb_h, ranges, subme)
+
+
+@functools.lru_cache(maxsize=None)
+def _esa_schedule(mb_w: int, mb_h: int):
+    """The 2:1 diagonals (ops/deblock.diag_schedule: the order of
+    intra_frame.py:515 _diag_schedule) as flat MB indices y * mb_w + x,
+    with each MB's MVP neighbours A (left), B (top) and C (top-right, else
+    top-left) as flat indices, B = mb_w * mb_h where the neighbour lies
+    outside the frame, and whether exactly one of them lies inside
+    (common/mvpred.c:103-137). Returns numpy arrays idx (N,), nb (N, 3),
+    single (N,) over all diagonals in order, and each diagonal's
+    [start, end) in them."""
+    B = mb_w * mb_h
+    idx, nb, single, spans = [], [], [], []
+    for ys, xs in DB.diag_schedule(mb_w, mb_h):
+        start = len(idx)
+        for y, x in zip(ys, xs):
+            a = y * mb_w + x - 1 if x >= 1 else B
+            b = (y - 1) * mb_w + x if y >= 1 else B
+            if y >= 1 and x + 1 < mb_w:
+                c = (y - 1) * mb_w + x + 1
+            elif y >= 1 and x >= 1:
+                c = (y - 1) * mb_w + x - 1
+            else:
+                c = B
+            idx.append(y * mb_w + x)
+            nb.append((a, b, c))
+            single.append(sum(v < B for v in (a, b, c)) == 1)
+        spans.append((start, len(idx)))
+    return (np.array(idx, np.int64), np.array(nb, np.int64),
+            np.array(single), spans)
+
+
+def decide_mvs(surf16, fenc_y, wins4, lam, mb_w: int, mb_h: int,
+               me_range: int, mv_range: int, subme: int):
+    """ESA MV decision (decide_mvs, inter_frame.py:200): the exact
+    sequential-MVP wavefront over the 2:1 diagonals, one step per
+    diagonal. Each MB of a diagonal takes the median MVP (_mvp_16x16,
+    :148) of its neighbours, all decided on earlier diagonals, and the
+    argmin of its surface plus lambda * mvbits over the legal offsets
+    (first minimum on ties); then the subpel refine against the exact MVP
+    field. surf16 (S, mb_h, mb_w, n, n) classic layout. Fixed step count,
+    no host sync. Returns (S, mb_h, mb_w, 2) qpel MVs."""
+    R = me_range
+    n = 2 * R + 1
+    S = surf16.shape[0]
+    B = mb_w * mb_h
+    dev = surf16.device
+    ranges, offs, ok = _legal_offsets(mb_w, mb_h, R, mv_range, dev)
+    idx_np, nb_np, single_np, spans = _esa_schedule(mb_w, mb_h)
+    idx_all = device_table(idx_np, dev, torch.long)
+    nb_all = device_table(nb_np, dev, torch.long)
+    single_all = device_table(single_np, dev, torch.bool)
+    ok_flat = ok.reshape(B, n, n)
+    surf = surf16.reshape(S, B, n, n)
+    lam_flat = lam.reshape(S, B)
+    bits = device_table(_MVBITS, dev)
+    offs4 = offs * 4
+    # slot B of the MV field stays 0: the MV of a neighbour outside the frame
+    mv = torch.zeros((S, B + 1, 2), dtype=_I32, device=dev)
+    cost_f = torch.zeros((S, B), dtype=_I32, device=dev)
+    for start, end in spans:
+        idx = idx_all[start:end]
+        k = end - start
+        cand = mv[:, nb_all[start:end]]                     # (S, k, 3, 2)
+        total = cand.sum(2, dtype=_I32)
+        med = total - cand.amin(2) - cand.amax(2)
+        mvp = torch.where(single_all[start:end, None], total, med)
+        bx = bits[(offs4 - mvp[..., 0:1]).abs().clamp(
+            max=_MVBITS_RANGE - 1).long()]                  # (S, k, n)
+        by = bits[(offs4 - mvp[..., 1:2]).abs().clamp(
+            max=_MVBITS_RANGE - 1).long()]
+        bias = lam_flat[:, idx][..., None, None] * (by[..., :, None]
+                                                    + bx[..., None, :])
+        cost = torch.where(ok_flat[idx], surf[:, idx] + bias, BIG).reshape(
+            S, k, n * n)
+        kk = torch.argmin(cost, -1, keepdim=True)
+        cost_f.index_copy_(1, idx, torch.gather(cost, -1, kk)[..., 0])
+        mv.index_copy_(1, idx, _offset_mvs(kk[..., 0], n, R))
+    mv_field = mv[:, :B].reshape(S, mb_h, mb_w, 2)
+    # every neighbour inside the frame is decided now, so the exact MVP of
+    # every MB is the one-pass median field
+    return subpel_refine_batch(mv_field, cost_f.reshape(S, mb_h, mb_w),
+                               mvp_field_parallel(mv_field), fenc_y, wins4,
+                               lam, mb_w, mb_h, ranges, subme)
+
+
 def tile_mb(plane, mb_w: int, mb_h: int, mbsize: int):
     """(S, mb_h*m, mb_w*m) -> (S*mb_h*mb_w, m, m)."""
     S = plane.shape[0]
@@ -476,14 +609,7 @@ def decide_partitions(cost8, mv16_field, fenc_y, wins4, lam, mb_w: int,
     S = cost8.shape[0]
     B = S * mb_h * mb_w
     dev = cost8.device
-    ranges = make_mv_ranges(mb_w, mb_h, mv_range, dev)
-    mvmin_x, mvmax_x, mvmin_y, mvmax_y = ranges
-    offs = torch.arange(-R, R + 1, device=dev, dtype=_I32)
-    ok_x = ((offs[None, :] >= ((mvmin_x >> 2) + 6)[:, None])
-            & (offs[None, :] <= ((mvmax_x >> 2) - 6)[:, None]))  # (mb_w, n)
-    ok_y = ((offs[None, :] >= ((mvmin_y >> 2) + 6)[:, None])
-            & (offs[None, :] <= ((mvmax_y >> 2) - 6)[:, None]))  # (mb_h, n)
-    ok = ok_y[:, None, :, None] & ok_x[None, :, None, :]  # (mb_h, mb_w, dy, dx)
+    ranges, offs, ok = _legal_offsets(mb_w, mb_h, R, mv_range, dev)
 
     # search bias around the 16x16 result (the partition MEs seed from
     # me16x16.mv, analyse.c:880): lam * (bits(dx) + bits(dy))
@@ -499,8 +625,7 @@ def decide_partitions(cost8, mv16_field, fenc_y, wins4, lam, mb_w: int,
         cost = torch.where(ok, surf + bias, BIG).reshape(S, mb_h, mb_w, n * n)
         k = torch.argmin(cost, dim=-1, keepdim=True)     # first minimum
         c = torch.gather(cost, -1, k)[..., 0]
-        k = k[..., 0].to(_I32)
-        return torch.stack([(k % n - R) * 4, (k // n - R) * 4], -1), c
+        return _offset_mvs(k[..., 0], n, R), c
 
     q = [[pick(cost8[:, :, :, qy, qx]) for qx in range(2)] for qy in range(2)]
     top = pick(cost8[:, :, :, 0, 0] + cost8[:, :, :, 0, 1])     # 16x8
@@ -780,22 +905,24 @@ def encode_p_frame(fenc_y, fenc_u, fenc_v, ref4, refu, refv, qp_mb, qpc_mb,
     (S, 4, Hp, Wp), refu/refv (S, Hc+P, Wc+P) int32 reference planes
     (mc.make_ref_planes / pad_chroma); qp/qpc/lam (S, mb_h, mb_w) int32.
     Returns the syntax + recon dict of the JAX encode_p_frame (one
-    reference, me_method DIA or HEX, subme 1-11, partitions on or off),
-    each tensor with a leading S axis.
+    reference, me_method DIA, HEX, UMH or ESA, subme 0-11, partitions on
+    or off), each tensor with a leading S axis.
 
-    Without partitions the walk is the only reader of the SAD surface,
-    so kernel K1 sums the whole MB in-kernel (the surface16 path,
-    inter_frame.py:1807); with partitions kernel K4 writes the quadrant
-    surfaces and the walk reads their sum (:1823, :1873)."""
-    if me_method not in (P.ME_DIA, P.ME_HEX):
-        raise ValueError("encode_p_frame runs the DIA or HEX search")
+    With DIA or HEX and no partitions the walk is the only reader of the
+    SAD surface, so kernel K1 sums the whole MB in-kernel (the surface16
+    path, inter_frame.py:1807); otherwise kernel K4 writes the quadrant
+    surfaces and the search reads their sum (:1823, :1873): UMH
+    (decide_mvs_parallel) and ESA (decide_mvs) read the classic layout."""
     S = fenc_y.shape[0]
     dev = fenc_y.device
     fy = fenc_y.to(_I32).contiguous()
-    if partitions:
+    classic = partitions or me_method not in (P.ME_DIA, P.ME_HEX)
+    if classic:
         cost8 = fullpel_cost_surfaces_8x8(fy, ref4[:, 0], mb_w, mb_h,
                                           me_range)
         surf16 = cost8.sum(dim=(3, 4), dtype=_I32)
+        if not partitions:
+            del cost8
     else:
         strips = me_sad.make_ref_strips(ref4[:, 0], MC.PAD_MC, mb_w, mb_h,
                                         me_range)
@@ -808,9 +935,14 @@ def encode_p_frame(fenc_y, fenc_u, fenc_v, ref4, refu, refv, qp_mb, qpc_mb,
         S * mb_h * mb_w, MG.WIN_C, MG.WIN_C)
     winsv = MG.chroma_windows(refv, mb_w, mb_h).reshape(
         S * mb_h * mb_w, MG.WIN_C, MG.WIN_C)
-    mv_field = decide_mvs_pattern(surf16, not partitions, fy, wins4, lam_mb,
-                                  mb_w, mb_h, me_range, mv_range, me_method,
-                                  subme)
+    if me_method in (P.ME_DIA, P.ME_HEX):
+        mv_field = decide_mvs_pattern(surf16, not classic, fy, wins4, lam_mb,
+                                      mb_w, mb_h, me_range, mv_range,
+                                      me_method, subme)
+    else:
+        decide = decide_mvs_parallel if me_method == P.ME_UMH else decide_mvs
+        mv_field = decide(surf16, fy, wins4, lam_mb, mb_w, mb_h, me_range,
+                          mv_range, subme)
     del surf16
     skip_ok = torch.zeros((S, mb_h, mb_w), dtype=torch.bool, device=dev)
     if fast_pskip:

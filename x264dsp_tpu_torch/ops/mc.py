@@ -65,3 +65,25 @@ def make_ref_planes(recon):
 def pad_chroma(recon):
     """(S, H/2, W/2) -> (S, H/2+P, W/2+P) int32, edge-replicated."""
     return edge_pad(recon.to(torch.int32), PAD_MC // 2)
+
+
+def lowres_planes(plane):
+    """Half-res pyramid (mc.py:126 lowres_planes, frame_init_lowres_core,
+    common/mc.c:433-460): (S, H, W) with H, W even -> (S, 4, H/2, W/2)
+    int32, the four phase-shifted planes [full, h, v, c] of the
+    (avg, avg) -> avg filter, the last row and column replicated."""
+    H, W = plane.shape[-2:]
+    ri = torch.arange(H + 2, device=plane.device).clamp(max=H - 1)
+    ci = torch.arange(W + 2, device=plane.device).clamp(max=W - 1)
+    p = plane.to(torch.int32)[..., ri[:, None], ci[None, :]]
+
+    def F(a, b, c, d):
+        return (((a + b + 1) >> 1) + ((c + d + 1) >> 1) + 1) >> 1
+
+    s0, s1, s2 = p[..., 0:H:2, :], p[..., 1:H + 1:2, :], p[..., 2:H + 2:2, :]
+    x0, x1, x2 = slice(0, W, 2), slice(1, W + 1, 2), slice(2, W + 2, 2)
+    return torch.stack([F(s0[..., x0], s1[..., x0], s0[..., x1], s1[..., x1]),
+                        F(s0[..., x1], s1[..., x1], s0[..., x2], s1[..., x2]),
+                        F(s1[..., x0], s2[..., x0], s1[..., x1], s2[..., x1]),
+                        F(s1[..., x1], s2[..., x1], s1[..., x2], s2[..., x2])],
+                       dim=-3)

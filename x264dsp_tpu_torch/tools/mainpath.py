@@ -8,7 +8,12 @@
   the p8x8 partitions) cut to what the baseline BatchEncoder codes (no
   i8x8, one reference, no B-frames), on a device twin of the
   split-motion clip of tests/test_partitions.py:21 (two halves moving
-  in different directions, so partitions win on some MBs).
+  in different directions, so partitions win on some MBs);
+- v2: the main path's settings under CRF, x264's default rate control,
+  on the synthetic clip with a noise scale per stream, so that the
+  streams' rate controls pick different QPs; and the two rate-controlled
+  settings that the small card-against-CPU checks drive: CRF with UMH
+  and subme 0, ABR with ESA and the partitions.
 
 The parameter helpers set their fields on ``p`` when given (any Param
 with the package's fields: the tests pass the JAX package's so that both
@@ -53,11 +58,46 @@ def faster_1ref_param(w: int, h: int, qp: int = 26, keyint: int = 50,
     return p
 
 
-def synth_clip(w: int, h: int, device):
+def crf_param(w: int, h: int, crf: float = 23.0, keyint: int = 50,
+              p=None):
+    """The main path's settings with CRF at `crf` in place of CQP (23 is
+    x264's documented default; the package's param_default has 28)."""
+    from .. import params as P
+    p = main_path_param(w, h, keyint=keyint, p=p)
+    p.rc.i_rc_method = P.RC_CRF
+    p.rc.f_rf_constant = crf
+    return p
+
+
+def crf_umh_param(w: int, h: int, keyint: int, p=None):
+    """CRF 30 with the UMH search and subme 0 (no subpel refine), the
+    main path's other settings."""
+    from .. import params as P
+    p = crf_param(w, h, 30.0, keyint, p)
+    p.analyse.i_me_method = P.ME_UMH
+    p.analyse.i_subpel_refine = 0
+    return p
+
+
+def abr_esa_param(w: int, h: int, keyint: int, p=None):
+    """ABR at 200 kbit/s with the ESA search, subme 2 and the
+    16x8/8x16/8x8 partitions, the main path's other settings."""
+    from .. import params as P
+    p = main_path_param(w, h, keyint=keyint, p=p)
+    p.rc.i_rc_method = P.RC_ABR
+    p.rc.i_bitrate = 200
+    p.analyse.i_me_method = P.ME_ESA
+    p.analyse.i_subpel_refine = 2
+    p.analyse.inter = P.ANALYSE_PSUB16x16
+    return p
+
+
+def synth_clip(w: int, h: int, device, sigma: float = 2.0):
     """Returns frame(t) -> (y, u, v) uint8 planes of size h x w on
-    `device`; t is the (fractional) frame phase."""
+    `device`; t is the (fractional) frame phase and `sigma` the standard
+    deviation of the luma noise (the detail the encoder sees)."""
     rng = np.random.default_rng(0)
-    noise = torch.as_tensor(rng.normal(0, 2.0, (h, w)).astype(np.float32),
+    noise = torch.as_tensor(rng.normal(0, sigma, (h, w)).astype(np.float32),
                             device=device)
     yy = torch.arange(h, dtype=torch.float32, device=device)[:, None] \
         .expand(h, w)
@@ -105,10 +145,18 @@ def split_motion_clip(w: int, h: int, device, seed: int = 11):
     return frame
 
 
+def detail_clips(w: int, h: int, device, S: int):
+    """S synth_clip frame functions whose luma noise doubles from stream to
+    stream, 1, 2, 4, 8, 1, ... (for stacked_slot)."""
+    return [synth_clip(w, h, device, 2.0 ** (s % 4)) for s in range(S)]
+
+
 def stacked_slot(frame, t: int, S: int):
-    """Slot t of S streams; stream s shows the clip at phase 1 + t + 3s.
-    Returns stacked (S, H, W) y and (S, H/2, W/2) u, v."""
-    fr = [frame(1.0 + t + 3 * s) for s in range(S)]
+    """Slot t of S streams; stream s shows the clip at phase 1 + t + 3s
+    (`frame` one frame function, or one per stream). Returns stacked
+    (S, H, W) y and (S, H/2, W/2) u, v."""
+    frames = frame if isinstance(frame, (list, tuple)) else [frame] * S
+    fr = [frames[s](1.0 + t + 3 * s) for s in range(S)]
     return tuple(torch.stack([f[i] for f in fr]) for i in range(3))
 
 
@@ -116,9 +164,9 @@ def payload_vs_writers(be):
     """Hold the newest slot's device CAVLC payloads to the host C++
     writers: `be` is a BatchEncoder with keep_syntax set that has just
     encoded a slot. Pulls that slot's syntax once, writes every stream's
-    slice with native.write_slice_p / _i and compares bytes, bit counts
-    and skip counts. Returns the streams' bit counts; raises RuntimeError
-    on the first difference."""
+    slice with native.write_slice_p / _i, with that stream's slice header
+    and QP, and compares bytes, bit counts and skip counts. Returns the
+    streams' bit counts; raises RuntimeError on the first difference."""
     from .. import params as P
     from ..encoder import core as C
     from ..entropy import native
@@ -130,16 +178,15 @@ def payload_vs_writers(be):
     n_skip = slot["n_skip"].cpu().numpy()
     if slot["ov"].any().item():
         raise RuntimeError("the device packer raised its overflow flag")
-    qp = slot["qp"]
-    grid = np.full((be.mb_h, be.mb_w), qp, np.int16)
     for s in range(be.S):
+        qp, header = slot["qps"][s], slot["headers"][s]
+        grid = np.full((be.mb_h, be.mb_w), qp, np.int16)
         if is_p:
             want, want_skip = native.write_slice_p(
-                slot["header"], be.mb_w, be.mb_h, qp, host[s], qp_mb=grid)
+                header, be.mb_w, be.mb_h, qp, host[s], qp_mb=grid)
         else:
             want, want_skip = native.write_slice_i(
-                slot["header"], be.mb_w, be.mb_h, qp, host[s],
-                qp_mb=grid), 0
+                header, be.mb_w, be.mb_h, qp, host[s], qp_mb=grid), 0
         nbytes = (int(bits[s]) + 7) // 8
         if (nbytes != len(want) or int(n_skip[s]) != want_skip
                 or payload[s, :nbytes].tobytes() != want

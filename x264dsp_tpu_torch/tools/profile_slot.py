@@ -21,13 +21,19 @@ the main path's synthetic clip and settings (tools/mainpath.py):
   P step faster-1ref
              the same for faster-1ref (HEX, subme 4, 16x8/8x16/8x8
              partitions; kernel K4 in place of K1) on the split-motion
-             clip.
+             clip;
+  P step crf-esa
+             the same for the per-stream rate control (CRF 23) with the
+             ESA search (K4 in place of K1) on the synthetic clip with a
+             noise scale per stream (tools/mainpath.py detail_clips): the
+             step starts with the lowres cost pass and its pull, and the
+             slice QPs are one RateControl decision per stream.
 
 Each P step also prints its stage split ("P step ... stages"): one more
 run with a device sync around each stage of encode_p_frame (the full-pel
 surfaces, the windows, the MV decision, the P-skip probe, the partition
 analysis, the residual, the strengths) and of frame_step (the device
-CAVLC packer, deblock, reference planes).
+CAVLC packer, deblock, reference planes), and the lowres cost pass.
 
 Device time is the sum of the CUDA activity the profiler records
 (kernels, copies, memsets); the step runs on one stream, so that
@@ -86,13 +92,17 @@ def stage_split(fn) -> dict:
     """One call of fn with a device sync around each stage of the P step:
     {stage: ms}. The stages are the module functions that encode_p_frame
     and frame_step call, wrapped for the call and restored after it."""
-    from x264dsp_tpu_torch.encoder import core, inter_frame
+    from x264dsp_tpu_torch.encoder import core, inter_frame, slicetype
     from x264dsp_tpu_torch.ops import mc, mcgather, me_sad
-    stages = {"surfaces": [(me_sad, "sad_cost_surface16_lanes"),
+    stages = {"lowres": [(mc, "lowres_planes"),
+                         (slicetype, "frame_summary")],
+              "surfaces": [(me_sad, "sad_cost_surface16_lanes"),
                            (inter_frame, "fullpel_cost_surfaces_8x8")],
               "windows": [(mcgather, "luma_windows"),
                           (mcgather, "chroma_windows")],
-              "mv decision": [(inter_frame, "decide_mvs_pattern")],
+              "mv decision": [(inter_frame, "decide_mvs_pattern"),
+                              (inter_frame, "decide_mvs_parallel"),
+                              (inter_frame, "decide_mvs")],
               "pskip probe": [(inter_frame, "probe_pskip")],
               "partitions": [(inter_frame, "decide_partitions")],
               "residual": [(inter_frame, "encode_p_residual")],
@@ -125,34 +135,36 @@ def stage_split(fn) -> dict:
     return ms
 
 
-def p_step(label, be, frame, S, dev, grid):
+def p_step(label, be, frame, S, dev):
     """Measure one P frame_step of `be`'s settings on slots 0 -> 1 of
     `frame` (the P step lines of the module docstring)."""
     from x264dsp_tpu_torch.encoder import core as C
-    from x264dsp_tpu_torch.entropy.bitstream import BitWriter
+    from x264dsp_tpu_torch.encoder import slicetype as ST
     from x264dsp_tpu_torch.ops import mc as MC
     from .mainpath import stacked_slot
     import x264dsp_tpu_torch as xtt
-    qp = be.slot_qp(xtt.SLICE_TYPE_P)
-    cfg = be.frame_cfg(qp)
     mb_w, mb_h = W // 16, H // 16
     py, pu, pv = stacked_slot(frame, 0, S)
     refs = (MC.make_ref_planes(py).contiguous(),
             MC.pad_chroma(pu).contiguous(), MC.pad_chroma(pv).contiguous())
     cur = stacked_slot(frame, 1, S)
-    qp_mb = grid(qp, mb_w, mb_h)
-    lam = grid(C.LAMBDA_TAB[qp], mb_w, mb_h)
+    if be.per_stream_rc:
+        # one QP decision per stream against the previous slot's source
+        low_prev = be.prev_low4 = MC.lowres_planes(py)
+    qps = be.slot_qps(cur[0], xtt.SLICE_TYPE_P, False)
+    _, x = be.slot_inputs(xtt.SLICE_TYPE_P, qps, -1)
+    cfg = be.frame_cfg(max(qps))
     clock = C.StageClock(dev, False)
-    bw = BitWriter()
-    C.write_slice_header_common(be, bw, xtt.SLICE_TYPE_P, qp, -1)
-    hv, hl = (torch.as_tensor(a, device=dev) for a in
-              C.CD.header_elements(*bw.get_unaligned(), max_slots=32))
 
     def run_p():
-        C.frame_step(cfg, True, *cur, refs, qp_mb, lam, qp, hv, hl, clock)
+        if be.per_stream_rc:
+            ST.frame_summary(MC.lowres_planes(cur[0])[:, 0], low_prev, mb_w,
+                             mb_h, be.lowres_edges)[:, :2].cpu()
+        C.frame_step(cfg, True, *cur, refs, x["qp_mb"], x["lam"],
+                     x["slice_qp"], x["hv"], x["hl"], clock)
     run_p()                                        # warm-up
     t = wall(run_p)
-    print(f"{label} {W}x{H} S={S} QP {qp}: unprofiled {t * 1e3:.2f} ms")
+    print(f"{label} {W}x{H} S={S} QPs {qps}: unprofiled {t * 1e3:.2f} ms")
     tp, n_ops, busy, per = device_profile(run_p)
     print(f"{label} profiled: wall {tp * 1e3:.2f} ms, device {busy:.2f} ms"
           f" = {100 * busy / (tp * 1e3):.1f}% of the profiled wall, "
@@ -179,8 +191,9 @@ def main(argv=None) -> None:
     from x264dsp_tpu_torch.ops.tables import CHROMA_QP_TABLE
     from x264dsp_tpu_torch.encoder import core as C
     from x264dsp_tpu_torch.encoder import intra_frame
-    from .mainpath import (faster_1ref_param, main_path_param,
-                           split_motion_clip, stacked_slot, synth_clip)
+    from .mainpath import (crf_param, detail_clips, faster_1ref_param,
+                           main_path_param, split_motion_clip, stacked_slot,
+                           synth_clip)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -224,11 +237,15 @@ def main(argv=None) -> None:
           f"{n_ops} device ops = {n_ops / n_diag:.0f} per diagonal")
 
     # ---- P steps: the main path, then faster-1ref
-    p_step("P step", be, frame, S, dev, grid)
+    p_step("P step", be, frame, S, dev)
     be.close()
     be = xtt.BatchEncoder(faster_1ref_param(W, H), S, device="cuda")
-    p_step("P step faster-1ref", be, split_motion_clip(W, H, dev), S, dev,
-           grid)
+    p_step("P step faster-1ref", be, split_motion_clip(W, H, dev), S, dev)
+    be.close()
+    param = crf_param(W, H)
+    param.analyse.i_me_method = xtt.params.ME_ESA
+    be = xtt.BatchEncoder(param, S, device="cuda")
+    p_step("P step crf-esa", be, detail_clips(W, H, dev, S), S, dev)
     be.close()
 
 
