@@ -26,7 +26,12 @@ Phases (any failure exits non-zero):
      the slots on the wave and on the region deblock route; and on a
      64x48 clip whose two streams differ in detail, CRF 30 with UMH and
      subme 0, and ABR at 200 kbit/s with ESA, subme 2 and partitions:
-     identical bytes and per-stream QPs;
+     identical bytes and per-stream QPs; and the single-stream Encoder on
+     a 56x40 clip with a scene cut (8 frames, the card's frames as CUDA
+     tensors, the CPU's as numpy), at param_default() (CRF 28, CABAC) and
+     at CQP 20 + CABAC + HEX, subme 4, partitions with forced frame types
+     and QPs: identical headers, NALs, frame types, QPs, pic_out planes
+     and close() summary;
   4. the main path: BatchEncoder at 1920x1088, S = 8, QP 26, keyint 50,
      CAVLC, DIA, subme 1, one I slot and four P slots of a synthetic clip;
      prints fps and the per-stage split, and holds the device payload of
@@ -46,8 +51,17 @@ Phases (any failure exits non-zero):
      noise scale per stream, profiled; holds the device payload of every
      slot, every stream with its own slice header and QP, to the host C++
      writers, prints each stream's QP per slot (two streams must differ in
-     some slot), the stage split with the lowres cost pass and the fps.
-Phases 4 to 7 each set the launch counters to 0 just before they drive
+     some slot), the stage split with the lowres cost pass and the fps;
+  8. encoder: the single-stream Encoder at param_default() (CRF 28,
+     CABAC through the host C++ writer, scenecut 20, keyint 50) at
+     1920x1080 on stream 0 of phase 4's clip cut to 1080 rows, one I and
+     three P frames given as CUDA tensors: unprofiled (fps, each frame's
+     type, QP and bytes), then profiled with the same bytes (the stage
+     split); and a CAVLC twin of the first two frames, each forced to the
+     CRF run's QP, whose pic_out must equal the CABAC run's, whose device
+     CAVLC payload must equal the host C++ writers' and whose syntax,
+     written by the C++ CABAC writer, must give the CABAC run's slices.
+Phases 4 to 8 each set the launch counters to 0 just before they drive
 the encoder and read them just after; a kernel of the path that was
 never launched fails the run. The line before the last is the kernels'
 JSON record; the last line is {"ok": true, "device": {...}}. Imports
@@ -156,40 +170,9 @@ def kernel_checks():
         print(f"ptxas {kname}: {use['registers']} registers, "
               f"{use['stack']} bytes stack, {use['spill_stores']} bytes "
               f"spill stores, {use['spill_loads']} bytes spill loads")
-    rng = np.random.default_rng(2024)
     mb_w, mb_h = W // 16, H // 16
-    S = S_MAIN
     n = 2 * R + 1
     rec = []
-
-    def t(a, dtype=torch.int32):
-        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
-                               device=dev)
-
-    fenc = t(rng.integers(0, 256, (S, H, W)))
-    recon = t(rng.integers(0, 256, (S, H, W)), torch.uint8)
-    ref4 = MC.make_ref_planes(recon).contiguous()
-    strips = me_sad.make_ref_strips(ref4[:, 0], MC.PAD_MC, mb_w, mb_h, R)
-    refc = MC.pad_chroma(t(rng.integers(0, 256, (S, H // 2, W // 2)),
-                           torch.uint8)).contiguous()
-
-    # the library calls: one strided view of the padded planes and one
-    # copy with the uint8 conversion (never called by the port)
-    def luma_lib():
-        _, _, Hp, Wp = ref4.shape
-        o = MC.PAD_MC - MG.M_LUMA
-        v = ref4.as_strided(
-            (S, mb_h, mb_w, 4, MG.WIN_L, MG.WIN_L),
-            (4 * Hp * Wp, 16 * Wp, 16, Hp * Wp, Wp, 1), o * Wp + o)
-        return v.to(torch.uint8).reshape(S, mb_h * mb_w, 4, MG.WIN_L,
-                                         MG.WIN_L)
-
-    def chroma_lib():
-        _, Hc, Wc = refc.shape
-        o = MC.PAD_MC // 2 - MG.M_CHROMA
-        v = refc.as_strided((S, mb_h, mb_w, MG.WIN_C, MG.WIN_C),
-                            (Hc * Wc, 8 * Wc, 8, Wc, 1), o * Wc + o)
-        return v.to(torch.uint8).reshape(S, mb_h * mb_w, MG.WIN_C, MG.WIN_C)
 
     # K1 and K4 sum four packed byte differences per instruction
     # (VABSDIFF4.U8.ACC, issued at the int32 rate: 64 lanes per SM and
@@ -202,112 +185,166 @@ def kernel_checks():
     rate = sad_rate.rate()
     print(f"packed SAD rate (probe): {rate:.4e} sums/s = "
           f"{rate / INT32_OPS_S:.3f} of the {INT32_OPS_S:.4e} peak")
-    sad_sums = S * H * W * n * n // 4
-    int32_ms = 2 * S * H * W * n * n / INT32_OPS_S * 1e3
-    probe_ms = sad_sums / rate * 1e3
-    sad_in = nbytes(fenc, strips)
-    win_l = S * mb_h * mb_w * 4 * MG.WIN_L ** 2        # uint8 out
-    win_c = S * mb_h * mb_w * MG.WIN_C ** 2
-    # name, source, TPU kernel, kernel, plain, library call or None,
-    # kernel reps, plain reps, (bytes moved, operations at the int32 rate:
-    # for K1 and K4 their packed sums)
-    cases = [
-        ("sad_surface16", "x264dsp_tpu_torch/csrc/me_sad.cu",
-         "x264dsp_tpu/ops/pallas/me_sad.py:138",
-         lambda: me_sad.sad_cost_surface16_lanes_cuda(fenc, strips, mb_w,
-                                                      mb_h, R),
-         lambda: me_sad.sad_cost_surface16_lanes_plain(fenc, strips, mb_w,
-                                                       mb_h, R),
-         None, 10, 1, (sad_in + 4 * S * mb_h * mb_w * n * n, sad_sums)),
-        ("sad_surfaces_8x8", "x264dsp_tpu_torch/csrc/me_sad.cu",
-         "x264dsp_tpu/ops/pallas/me_sad.py:72",
-         lambda: me_sad.sad_cost_surfaces_8x8_cuda(fenc, strips, mb_w,
-                                                   mb_h, R),
-         lambda: me_sad.sad_cost_surfaces_8x8_plain(fenc, strips, mb_w,
-                                                    mb_h, R),
-         None, 10, 1, (sad_in + 16 * S * mb_h * mb_w * n * n, sad_sums)),
-        ("luma_windows", "x264dsp_tpu_torch/csrc/windows.cu",
-         "x264dsp_tpu/ops/pallas/windows.py:30",
-         lambda: MG.luma_windows_cuda(ref4, mb_w, mb_h),
-         lambda: MG.luma_windows_plain(ref4, mb_w, mb_h), luma_lib, 10, 3,
-         (nbytes(ref4) + win_l, 0)),
-        ("chroma_windows", "x264dsp_tpu_torch/csrc/windows.cu",
-         "x264dsp_tpu/ops/pallas/windows.py:68",
-         lambda: MG.chroma_windows_cuda(refc, mb_w, mb_h),
-         lambda: MG.chroma_windows_plain(refc, mb_w, mb_h), chroma_lib, 10,
-         3, (nbytes(refc) + win_c, 0)),
-    ]
-    # K3: a P-like case (no intra MBs, random bS 0..2, skips) and an
-    # I-like case (every MB intra, bS 3), per-MB QP grids
-    blocky = np.kron(rng.integers(0, 256, (S, mb_h * 4, mb_w * 4)),
-                     np.ones((1, 4, 4), np.int64))
-    y = t((blocky + rng.integers(-6, 7, (S, H, W))).clip(0, 255))
-    cu = np.kron(rng.integers(0, 256, (S, mb_h * 2, mb_w * 2)),
-                 np.ones((1, 4, 4), np.int64))
-    u, v = t(cu), t(255 - cu)
-    qp = rng.integers(20, 41, (S, mb_h, mb_w))
-    qpc = CHROMA_QP_TABLE[qp]
-    grid = (S, mb_h, mb_w)
-    p_args = (y, u, v, t(rng.integers(0, 3, grid + (2, 4, 4))),
-              t(np.zeros(grid)), t(rng.random(grid) < 0.2), t(qp), t(qpc),
-              0, 0, mb_w, mb_h)
-    i_args = (y, u, v, t(np.full(grid + (2, 4, 4), 3)), t(np.ones(grid)),
-              t(np.zeros(grid)), t(qp), t(qpc), 0, 0, mb_w, mb_h)
-    for tag, args in (("P", p_args), ("I", i_args)):
-        # bytes only: the planes read and written once, the grids read
-        # once; the filter arithmetic is a few operations per edge sample
-        dsrc = "x264dsp_tpu_torch/csrc/deblock.cu"
-        moved = nbytes(*args[:8]) + nbytes(y, u, v)
-        # the plain wavefronts are eager loops over the 254 diagonals
-        # (seconds): plain reps 0 = timed once, on the call that is compared
-        cases.append((f"deblock[{tag}]", dsrc,
-                      "x264dsp_tpu/ops/pallas/deblock_skew.py:258",
-                      lambda a=args: DB.deblock_frame_cuda(*a),
-                      lambda a=args: DB.deblock_frame_plain(*a), None, 10, 0,
-                      (moved, 0)))
-        # K5a / K5b: the same frames from the precomputed lanes (planes
-        # read and written once, lanes read once)
-        luma_l, chroma_l = DB.wave_lanes(*args[3:])
-        cases.append((f"deblock_wave_luma[{tag}]", dsrc,
-                      "x264dsp_tpu/ops/pallas/deblock_wave.py:270",
-                      lambda l=luma_l: DB.deblock_wave_luma_cuda(
-                          y, *l, mb_w, mb_h),
-                      lambda l=luma_l: DB.deblock_wave_luma_plain(
-                          y, *l, mb_w, mb_h), None, 10, 0,
-                      (2 * nbytes(y) + nbytes(*luma_l), 0)))
-        cases.append((f"deblock_wave_chroma[{tag}]", dsrc,
-                      "x264dsp_tpu/ops/pallas/deblock_wave.py:313",
-                      lambda l=chroma_l: DB.deblock_wave_chroma_cuda(
-                          u, v, *l, mb_w, mb_h),
-                      lambda l=chroma_l: DB.deblock_wave_chroma_plain(
-                          u, v, *l, mb_w, mb_h), None, 10, 0,
-                      (2 * nbytes(u, v) + nbytes(*chroma_l), 0)))
-        # K6: the longest diagonal of all streams, S x 60 = 480 regions
-        ys, xs = (torch.as_tensor(a, device=dev)
-                  for a in DB.diag_slots(mb_w, mb_h))
-        d = int((ys >= 0).sum(1).argmax())
-        k = int((ys[d] >= 0).sum())
-        if S * k % DB.KB:
-            fail(f"K6's diagonal has {S * k} regions, no multiple of "
-                 f"{DB.KB}")
-        F = torch.nn.functional
-        ry, rx = DB.region_index(ys[d, :k], xs[d, :k], 16, 20, dev)
-        cy, cx = DB.region_index(ys[d, :k], xs[d, :k], 8, 12, dev)
-        regy = F.pad(y, (4, 4, 4, 4))[:, ry, rx].reshape(S * k, 20, 20)
-        regc = F.pad(torch.stack([u, v], 1), (4, 4, 4, 4))[:, :, cy, cx] \
-            .transpose(1, 2).reshape(2 * S * k, 12, 12).contiguous()
-        ly = [t[:, d, :k].reshape(S * k, -1).contiguous() for t in luma_l]
-        lc = [t[:, d, :2 * k].reshape(2 * S * k, -1).contiguous()
-              for t in chroma_l]
-        regs = (regy, regc, ly[0], lc[0], ly[1], ly[2], lc[1], lc[2], ly[3],
-                ly[4], lc[3], lc[4])
-        cases.append((f"filter_regions[{tag}]", dsrc,
-                      "x264dsp_tpu/ops/pallas/deblock_filter.py:117",
-                      lambda r=regs: DB.filter_regions_cuda(*r),
-                      lambda r=regs: DB.filter_regions_plain(*r), None, 10, 3,
-                      (nbytes(*regs) + nbytes(regy, regc), 0)))
 
-    for name, src, replaces, kern, plain, lib, reps, preps, work in cases:
+    def t(a, dtype=torch.int32):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                               device=dev)
+
+    def cases_at(S: int, rng):
+        """The cases at S streams: every kernel at S = S_MAIN; at S = 1
+        the four of phase 8's path (K1, K2a, K2b, K3), tagged "S=1" in
+        their names. Returns (cases, K3's P-like and I-like arguments)."""
+        full = S == S_MAIN
+        tag1 = "" if full else "S=1"
+
+        def name(base, tag=""):
+            tags = ",".join(x for x in (tag, tag1) if x)
+            return f"{base}[{tags}]" if tags else base
+        fenc = t(rng.integers(0, 256, (S, H, W)))
+        recon = t(rng.integers(0, 256, (S, H, W)), torch.uint8)
+        ref4 = MC.make_ref_planes(recon).contiguous()
+        strips = me_sad.make_ref_strips(ref4[:, 0], MC.PAD_MC, mb_w, mb_h, R)
+        refc = MC.pad_chroma(t(rng.integers(0, 256, (S, H // 2, W // 2)),
+                               torch.uint8)).contiguous()
+
+        # the library calls: one strided view of the padded planes and one
+        # copy with the uint8 conversion (never called by the port)
+        def luma_lib():
+            _, _, Hp, Wp = ref4.shape
+            o = MC.PAD_MC - MG.M_LUMA
+            v = ref4.as_strided(
+                (S, mb_h, mb_w, 4, MG.WIN_L, MG.WIN_L),
+                (4 * Hp * Wp, 16 * Wp, 16, Hp * Wp, Wp, 1), o * Wp + o)
+            return v.to(torch.uint8).reshape(S, mb_h * mb_w, 4, MG.WIN_L,
+                                             MG.WIN_L)
+
+        def chroma_lib():
+            _, Hc, Wc = refc.shape
+            o = MC.PAD_MC // 2 - MG.M_CHROMA
+            v = refc.as_strided((S, mb_h, mb_w, MG.WIN_C, MG.WIN_C),
+                                (Hc * Wc, 8 * Wc, 8, Wc, 1), o * Wc + o)
+            return v.to(torch.uint8).reshape(S, mb_h * mb_w, MG.WIN_C,
+                                             MG.WIN_C)
+
+        sad_sums = S * H * W * n * n // 4
+        sad_in = nbytes(fenc, strips)
+        win_l = S * mb_h * mb_w * 4 * MG.WIN_L ** 2        # uint8 out
+        win_c = S * mb_h * mb_w * MG.WIN_C ** 2
+        # name, source, TPU kernel, kernel, plain, library call or None,
+        # kernel reps, plain reps, (bytes moved, operations at the int32
+        # rate: for K1 and K4 their packed sums)
+        cases = [
+            (name("sad_surface16"), "x264dsp_tpu_torch/csrc/me_sad.cu",
+             "x264dsp_tpu/ops/pallas/me_sad.py:138",
+             lambda: me_sad.sad_cost_surface16_lanes_cuda(fenc, strips,
+                                                          mb_w, mb_h, R),
+             lambda: me_sad.sad_cost_surface16_lanes_plain(fenc, strips,
+                                                           mb_w, mb_h, R),
+             None, 10, 1, (sad_in + 4 * S * mb_h * mb_w * n * n, sad_sums)),
+            (name("luma_windows"), "x264dsp_tpu_torch/csrc/windows.cu",
+             "x264dsp_tpu/ops/pallas/windows.py:30",
+             lambda: MG.luma_windows_cuda(ref4, mb_w, mb_h),
+             lambda: MG.luma_windows_plain(ref4, mb_w, mb_h), luma_lib, 10,
+             3, (nbytes(ref4) + win_l, 0)),
+            (name("chroma_windows"), "x264dsp_tpu_torch/csrc/windows.cu",
+             "x264dsp_tpu/ops/pallas/windows.py:68",
+             lambda: MG.chroma_windows_cuda(refc, mb_w, mb_h),
+             lambda: MG.chroma_windows_plain(refc, mb_w, mb_h), chroma_lib,
+             10, 3, (nbytes(refc) + win_c, 0)),
+        ]
+        if full:
+            cases.insert(1, (
+                "sad_surfaces_8x8", "x264dsp_tpu_torch/csrc/me_sad.cu",
+                "x264dsp_tpu/ops/pallas/me_sad.py:72",
+                lambda: me_sad.sad_cost_surfaces_8x8_cuda(fenc, strips,
+                                                          mb_w, mb_h, R),
+                lambda: me_sad.sad_cost_surfaces_8x8_plain(fenc, strips,
+                                                           mb_w, mb_h, R),
+                None, 10, 1, (sad_in + 16 * S * mb_h * mb_w * n * n,
+                              sad_sums)))
+        # K3: a P-like case (no intra MBs, random bS 0..2, skips) and an
+        # I-like case (every MB intra, bS 3), per-MB QP grids
+        blocky = np.kron(rng.integers(0, 256, (S, mb_h * 4, mb_w * 4)),
+                         np.ones((1, 4, 4), np.int64))
+        y = t((blocky + rng.integers(-6, 7, (S, H, W))).clip(0, 255))
+        cu = np.kron(rng.integers(0, 256, (S, mb_h * 2, mb_w * 2)),
+                     np.ones((1, 4, 4), np.int64))
+        u, v = t(cu), t(255 - cu)
+        qp = rng.integers(20, 41, (S, mb_h, mb_w))
+        qpc = CHROMA_QP_TABLE[qp]
+        grid = (S, mb_h, mb_w)
+        p_args = (y, u, v, t(rng.integers(0, 3, grid + (2, 4, 4))),
+                  t(np.zeros(grid)), t(rng.random(grid) < 0.2), t(qp),
+                  t(qpc), 0, 0, mb_w, mb_h)
+        i_args = (y, u, v, t(np.full(grid + (2, 4, 4), 3)),
+                  t(np.ones(grid)), t(np.zeros(grid)), t(qp), t(qpc), 0, 0,
+                  mb_w, mb_h)
+        for tag, args in (("P", p_args), ("I", i_args)):
+            # bytes only: the planes read and written once, the grids read
+            # once; the filter arithmetic is a few operations per edge
+            # sample
+            dsrc = "x264dsp_tpu_torch/csrc/deblock.cu"
+            moved = nbytes(*args[:8]) + nbytes(y, u, v)
+            # the plain wavefronts are eager loops over the 254 diagonals
+            # (seconds): plain reps 0 = timed once, on the call that is
+            # compared
+            cases.append((name("deblock", tag), dsrc,
+                          "x264dsp_tpu/ops/pallas/deblock_skew.py:258",
+                          lambda a=args: DB.deblock_frame_cuda(*a),
+                          lambda a=args: DB.deblock_frame_plain(*a), None,
+                          10, 0, (moved, 0)))
+            if not full:
+                continue
+            # K5a / K5b: the same frames from the precomputed lanes
+            # (planes read and written once, lanes read once)
+            luma_l, chroma_l = DB.wave_lanes(*args[3:])
+            cases.append((f"deblock_wave_luma[{tag}]", dsrc,
+                          "x264dsp_tpu/ops/pallas/deblock_wave.py:270",
+                          lambda l=luma_l: DB.deblock_wave_luma_cuda(
+                              y, *l, mb_w, mb_h),
+                          lambda l=luma_l: DB.deblock_wave_luma_plain(
+                              y, *l, mb_w, mb_h), None, 10, 0,
+                          (2 * nbytes(y) + nbytes(*luma_l), 0)))
+            cases.append((f"deblock_wave_chroma[{tag}]", dsrc,
+                          "x264dsp_tpu/ops/pallas/deblock_wave.py:313",
+                          lambda l=chroma_l: DB.deblock_wave_chroma_cuda(
+                              u, v, *l, mb_w, mb_h),
+                          lambda l=chroma_l: DB.deblock_wave_chroma_plain(
+                              u, v, *l, mb_w, mb_h), None, 10, 0,
+                          (2 * nbytes(u, v) + nbytes(*chroma_l), 0)))
+            # K6: the longest diagonal of all streams, S x 60 = 480 regions
+            ys, xs = (torch.as_tensor(a, device=dev)
+                      for a in DB.diag_slots(mb_w, mb_h))
+            d = int((ys >= 0).sum(1).argmax())
+            k = int((ys[d] >= 0).sum())
+            if S * k % DB.KB:
+                fail(f"K6's diagonal has {S * k} regions, no multiple of "
+                     f"{DB.KB}")
+            F = torch.nn.functional
+            ry, rx = DB.region_index(ys[d, :k], xs[d, :k], 16, 20, dev)
+            cy, cx = DB.region_index(ys[d, :k], xs[d, :k], 8, 12, dev)
+            regy = F.pad(y, (4, 4, 4, 4))[:, ry, rx].reshape(S * k, 20, 20)
+            regc = F.pad(torch.stack([u, v], 1), (4, 4, 4, 4))[:, :, cy, cx] \
+                .transpose(1, 2).reshape(2 * S * k, 12, 12).contiguous()
+            ly = [a[:, d, :k].reshape(S * k, -1).contiguous()
+                  for a in luma_l]
+            lc = [a[:, d, :2 * k].reshape(2 * S * k, -1).contiguous()
+                  for a in chroma_l]
+            regs = (regy, regc, ly[0], lc[0], ly[1], ly[2], lc[1], lc[2],
+                    ly[3], ly[4], lc[3], lc[4])
+            cases.append((f"filter_regions[{tag}]", dsrc,
+                          "x264dsp_tpu/ops/pallas/deblock_filter.py:117",
+                          lambda r=regs: DB.filter_regions_cuda(*r),
+                          lambda r=regs: DB.filter_regions_plain(*r), None,
+                          10, 3, (nbytes(*regs) + nbytes(regy, regc), 0)))
+        return [c + (S,) for c in cases], p_args, i_args
+
+    rng = np.random.default_rng(2024)
+    cases, p_args, i_args = cases_at(S_MAIN, rng)
+    cases += cases_at(1, rng)[0]
+
+    for (name, src, replaces, kern, plain, lib, reps, preps, work,
+         S) in cases:
         got = kern()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -325,12 +362,15 @@ def kernel_checks():
         bound_ms, bound_by = bound(*work)
         # K3, K5a and K5b are bound by their critical path: mb_w + 2 mb_h
         # - 2 MB steps
+        sad_n = S * H * W * n * n
         per_step = (f"  {1e3 * ms / (mb_w + 2 * mb_h - 2):.3f} us per "
                     f"critical-path step (device "
                     f"{1e3 * dev_ms / (mb_w + 2 * mb_h - 2):.3f})"
                     if name.startswith("deblock")
-                    else (f"  (at the probe's rate {probe_ms:.3f} ms; "
-                          f"int32 formulation {int32_ms:.3f} ms)")
+                    else (f"  (at the probe's rate "
+                          f"{sad_n / 4 / rate * 1e3:.3f} ms; int32 "
+                          f"formulation {2 * sad_n / INT32_OPS_S * 1e3:.3f}"
+                          " ms)")
                     if name.startswith("sad_") else "")
         print(f"kernel {name:22s} max_abs_err {err}  {ms:9.3f} ms  "
               f"(device {dev_ms:.4f} ms)  plain {plain_ms:10.3f} ms  "
@@ -340,7 +380,7 @@ def kernel_checks():
         if err != 0:
             fail(f"kernel {name} disagrees with its plain version")
         rec.append(dict(name=name, route="cuda", source=src,
-                        replaces=replaces, max_abs_err=err, ms=ms,
+                        replaces=replaces, streams=S, max_abs_err=err, ms=ms,
                         device_ms=dev_ms, plain_ms=plain_ms,
                         bound_ms=bound_ms,
                         bound_by=bound_by, library_ms=library_ms))
@@ -350,6 +390,7 @@ def kernel_checks():
     # the three routes of deblock_frame on the same planes and grids:
     # lanes + K5a + K5b, and one gather + K6 + scatter per diagonal,
     # against K3
+    S = S_MAIN
     for tag, args in (("P", p_args), ("I", i_args)):
         want = DB.deblock_frame(*args)
         ms = {None: time_cuda(lambda: DB.deblock_frame(*args), 5)}
@@ -475,6 +516,42 @@ def card_vs_cpu():
             fail(f"the card's Annex-B bytes differ from the CPU's ({label})")
         if not routes_same:
             fail(f"a deblock route changes the card's bytes ({label})")
+    encoder_card_vs_cpu()
+
+
+def encoder_card_vs_cpu():
+    """Phase 3, the Encoder: the scene-cut clip at param_default() and
+    at the CQP + CABAC settings with forced types and QPs, the card
+    against the CPU."""
+    import torch
+    import x264dsp_tpu_torch as xtt
+    from x264dsp_tpu_torch.tools.mainpath import (ENCODER_FORCED,
+                                                  encode_clip, encode_diff,
+                                                  encoder_cqp_param,
+                                                  encoder_param,
+                                                  scene_cut_clip)
+    w, h = 56, 40
+    frames = scene_cut_clip(w, h)
+    for label, make, forced in (
+            ("param_default", encoder_param, {}),
+            ("CQP 20 + CABAC + HEX + partitions, forced types and QPs",
+             encoder_cqp_param, ENCODER_FORCED)):
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            clip = ([[torch.as_tensor(a, device=dev) for a in f]
+                     for f in frames] if dev == "cuda" else frames)
+            runs[dev] = encode_clip(xtt.Encoder(make(w, h), device=dev),
+                                    clip, forced)
+        diff = encode_diff(runs["cuda"], runs["cpu"])
+        pics = runs["cpu"]["pics"]
+        print(f"card vs CPU, Encoder {label} {w}x{h}, {len(frames)} frames: "
+              f"types {[po.i_frame_type for po in pics]} QPs "
+              f"{[po.i_frame_qp for po in pics]} bytes "
+              f"{sum(len(b) for nl in runs['cpu']['nals'] for _, b in nl)} "
+              f"identical={diff is None}")
+        if diff is not None:
+            fail(f"the card's Encoder differs from the CPU's ({label}): "
+                 f"{diff}")
 
 
 def psnr(a, b) -> float:
@@ -668,6 +745,75 @@ def v2_path(n_p: int = 2):
     return launches
 
 
+def encoder_path(n_p: int = 3):
+    """Phase 8: the single-stream Encoder at param_default() at 1920x1080,
+    one I and n_p P frames, unprofiled and profiled, and the CAVLC twin of
+    its first two frames."""
+    import torch
+    import x264dsp_tpu_torch as xtt
+    from x264dsp_tpu_torch import params as P
+    from x264dsp_tpu_torch.tools.mainpath import (cabac_twin, encode_clip,
+                                                  encoder_param, synth_clip)
+    h = 1080
+    frame = synth_clip(W, H, torch.device("cuda"))
+    frames = [[a[:h >> (i > 0)] for i, a in enumerate(frame(1.0 + t))]
+              for t in range(1 + n_p)]
+    param = encoder_param(W, h)
+    torch.cuda.synchronize()
+    xtt.reset_kernel_launches()
+    t0 = time.perf_counter()
+    run = encode_clip(xtt.Encoder(param), frames)
+    wall = time.perf_counter() - t0
+    launches = xtt.kernel_launches()
+    pics = run["pics"]
+    sizes = [sum(len(b) for _, b in nl) for nl in run["nals"]]
+    print(f"encoder {W}x{h} param_default (CRF 28, CABAC): 1 I + {n_p} P "
+          f"frames in {wall:.3f} s = {len(frames) / wall:.3f} fps; types "
+          f"{[po.i_frame_type for po in pics]} QPs "
+          f"{[po.i_frame_qp for po in pics]} bytes {sizes}")
+    print(f"kernel launches in encoder: {launches}")
+    missing = [k for k in ("sad_surface16", "luma_windows", "chroma_windows",
+                           "deblock") if launches[k] <= 0]
+    if missing:
+        fail(f"kernels of the encoder never launched: {missing}")
+    worst = min(psnr(po.y, f[0].cpu().numpy()) for po, f in zip(pics, frames))
+    print(f"encoder recon: worst luma PSNR {worst:.2f} dB over "
+          f"{len(frames)} frames")
+    if ([po.i_frame_type for po in pics] != [P.TYPE_IDR] + [P.TYPE_P] * n_p
+            or worst < 30.0 or min(sizes) == 0):
+        fail("encoder output is wrong (frame types, PSNR < 30 dB or an "
+             "empty frame)")
+
+    # the same frames, profiled: the same bytes and the stage split
+    enc = xtt.Encoder(param, profile=True)
+    if encode_clip(enc, frames)["nals"] != run["nals"]:
+        fail("the profiled encoder run wrote other bytes")
+    for kind, name in ((P.SLICE_TYPE_I, "I"), (P.SLICE_TYPE_P, "P")):
+        rows = [tm for st, tm in enc._core.frame_times if st == kind]
+        avg = {k: 1000 * sum(r[k] for r in rows) / len(rows) for k in rows[0]}
+        print(f"encoder {name} frame ms (mean of {len(rows)}): "
+              + " ".join(f"{k} {v:.2f}" for k, v in avg.items())
+              + f" | total {sum(avg.values()):.2f}")
+
+    # the CAVLC twin of frames 0 and 1, each forced to the CRF run's QP
+    # (mainpath.cabac_twin): the analysis does not read the entropy mode,
+    # so its type, QP and recon are the CABAC run's, its device payload is
+    # the host C++ writers', and its syntax with the CABAC-only keys,
+    # written by the C++ CABAC writer, gives the run's slice NALs. The twin
+    # keeps CRF: a CQP stream's QPs are clipped to qp_constant -3..+3
+    # (validate_parameters), narrower than the CRF run's I and P QPs may
+    # lie
+    try:
+        bits = cabac_twin(param, run, frames, 2)
+    except RuntimeError as e:
+        fail(f"encoder twin: {e}")
+    print(f"encoder twin (CAVLC) frames 0-1 at QPs "
+          f"{[po.i_frame_qp for po in pics[:2]]}: type, QP and recon == "
+          f"CABAC run's; device payload == host C++ writers (bits {bits}); "
+          f"C++ CABAC writer on its syntax == CABAC run's slice NALs")
+    return launches
+
+
 def main() -> None:
     sys.path.insert(0, str(ROOT))
     try:
@@ -695,8 +841,11 @@ def main() -> None:
     for k in ("deblock_wave_luma", "deblock_wave_chroma", "filter_regions"):
         launches[k] = routed[k]
     v2_path()
+    # the S = 1 records are held to phase 8's launches
+    encoder_launches = encoder_path()
     for k in kernels:
-        k["launches"] = launches[k["name"].split("[")[0]]
+        k["launches"] = (encoder_launches if k["streams"] == 1
+                         else launches)[k["name"].split("[")[0]]
     if "jax" in sys.modules:
         fail("jax was imported during the run")
     print(json.dumps({"kernels": kernels}))

@@ -643,3 +643,30 @@ def test_rate_controlled_batch_encoder_card_equals_cpu(cuda, name):
     assert runs["cuda"] == runs["cpu"]
     assert all(runs["cpu"][0])
     assert any(qps[0] != qps[1] for qps in runs["cpu"][1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["param_default", "cqp_forced"])
+def test_encoder_card_equals_cpu(cuda, case):
+    """The single-stream Encoder on the 56x40 scene-cut clip, at
+    param_default() (CRF 28, CABAC, scenecut) and at CQP 20 + CABAC + HEX,
+    subme 4, partitions with forced frame types and QPs: the card's
+    headers, NALs, frame types, QPs, pic_out planes and summary equal the
+    CPU's (the card's frames given as CUDA tensors)."""
+    from x264dsp_tpu_torch.tools.mainpath import (ENCODER_FORCED,
+                                                  encode_clip, encode_diff,
+                                                  encoder_cqp_param,
+                                                  encoder_param,
+                                                  scene_cut_clip)
+    make, forced = ((encoder_param, {}) if case == "param_default"
+                    else (encoder_cqp_param, ENCODER_FORCED))
+    frames = scene_cut_clip()
+    xtt.reset_kernel_launches()
+    card = encode_clip(xtt.Encoder(make(56, 40)),
+                       [[torch.as_tensor(a, device=cuda) for a in f]
+                        for f in frames], forced)
+    launches = xtt.kernel_launches()
+    cpu = encode_clip(xtt.Encoder(make(56, 40), device="cpu"), frames,
+                      forced)
+    assert encode_diff(card, cpu) is None, encode_diff(card, cpu)
+    assert launches["luma_windows"] > 0 and launches["deblock"] > 0

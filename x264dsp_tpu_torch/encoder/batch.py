@@ -31,24 +31,12 @@ import torch
 
 from .. import params as P
 from ..api import NAL
-from ..entropy import cavlc_device as CD
 from ..entropy.bitstream import BitWriter, nal_unit
 from ..ops import mc as MC
 from . import core as C
 from . import slicetype as ST
 from .ratecontrol import RateControl
 from .sets import PPS, SPS
-
-
-def resolve_device(device) -> torch.device:
-    """The device a caller asked for; CUDA without a usable GPU raises."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device='cuda' requested but torch finds no "
-                           "CUDA device")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {device!r}")
-    return dev
 
 
 class BatchEncoder:
@@ -76,7 +64,7 @@ class BatchEncoder:
             raise P.ValidationError("BatchEncoder has no NR")
         if p.i_cqm_preset != P.CQM_FLAT:
             raise P.ValidationError("BatchEncoder v1 is flat-CQM")
-        self.device = resolve_device(device)
+        self.device = C.resolve_device(device)
         self.deblock_route = None
         # keep_syntax: hold the newest slot's device syntax and each
         # stream's slice header and QP in last_slot
@@ -114,8 +102,7 @@ class BatchEncoder:
         self.frames = {P.SLICE_TYPE_I: 0, P.SLICE_TYPE_P: 0}
         self.bytes = {P.SLICE_TYPE_I: 0, P.SLICE_TYPE_P: 0}
         self.mb_hist = {}
-        cap = C.DEV_PAYLOAD_BYTES_PER_MB * self.mb_w * self.mb_h + 4096
-        self._cap = -(-cap // 4) * 4
+        self._cap = C.payload_cap(self.mb_w, self.mb_h)
         self.clock = C.StageClock(self.device, profile)
         # profile: per-slot (slice type, {stage: seconds}) for the stages
         # lowres (the slice QPs, with CRF/ABR's lowres cost pass, and the
@@ -145,23 +132,8 @@ class BatchEncoder:
         """The static settings of core.frame_step for a slot at `qp` (with
         per-stream QPs, the largest: a stream below the deblock threshold
         then filters with zero alpha/beta, a no-op, batch.py:266-270)."""
-        p = self.param
-        return dict(mb_w=self.mb_w, mb_h=self.mb_h,
-                    me_range=p.analyse.i_me_range,
-                    mv_range=p.analyse.i_mv_range,
-                    me_method=min(max(p.analyse.i_me_method, 0), 3),
-                    subme=p.analyse.i_subpel_refine,
-                    partitions=bool(p.analyse.inter & P.ANALYSE_PSUB16x16),
-                    dct_decimate=bool(p.analyse.b_dct_decimate),
-                    fast_pskip=bool(p.analyse.b_fast_pskip),
-                    use_satd=p.analyse.i_subpel_refine > 0,
-                    i4x4=bool(p.analyse.intra & P.ANALYSE_I4x4),
-                    deblock_on=C.deblock_enabled(p, qp),
-                    deblock_route=self.deblock_route,
-                    cap_bytes=self._cap,
-                    alpha_off=p.i_deblocking_filter_alphac0 * 2,
-                    beta_off=p.i_deblocking_filter_beta * 2,
-                    cqpo=p.analyse.i_chroma_qp_offset)
+        return C.frame_cfg(self.param, self.mb_w, self.mb_h, qp, self._cap,
+                           self.deblock_route)
 
     # ------------------------------------------------------------------
     def _finish_pending(self):
@@ -173,19 +145,10 @@ class BatchEncoder:
         out = rec["out"]
         S = self.S
         self.clock.start()
-        # one small pull: bits, overflow flags, the summed stats vector
-        meta = torch.cat([out["bits"].long(), out["ov"].long(),
-                          out["stats"].sum(0).long()]).cpu().numpy()
-        bits, ov, vec = meta[:S], meta[S:2 * S], meta[2 * S:]
-        if ov.any() or (bits > self._cap * 8).any():
-            raise RuntimeError(
-                "device CAVLC overflow in BatchEncoder (pathological "
-                "content for the payload cap); use Encoder for this "
-                "stream")
-        nbytes = (bits + 7) >> 3
-        bucket = min(1 << max(12, int(nbytes.max() - 1).bit_length()),
-                     self._cap)
-        raw = out["payload"][:, :bucket].cpu().numpy()
+        nbytes, vec, raw = C.pull_payload(
+            out, self._cap, "device CAVLC overflow in BatchEncoder "
+            "(pathological content for the payload cap); use Encoder for "
+            "this stream")
         self.clock.mark("pull")
         nal_type = P.NAL_SLICE_IDR if rec["is_idr"] else P.NAL_SLICE
 
@@ -264,27 +227,9 @@ class BatchEncoder:
                 for s, rc in enumerate(self.rcs)]
 
     def slot_inputs(self, slice_type: int, qps: list, idr_pic_id: int):
-        """The per-stream inputs of core.frame_step for a slot at the
-        streams' QPs `qps`: each stream's slice header, and a dict of its
-        packer slots hv / hl (S, n), qp_mb / lam (S, mb_h, mb_w) and the
-        (S,) slice_qp (batch.py:247-265). Returns (headers, inputs)."""
-        headers = []
-        for qp in qps:
-            bw = BitWriter()
-            C.write_slice_header_common(self, bw, slice_type, qp, idr_pic_id)
-            headers.append(bw.get_unaligned())
-        elems = [CD.header_elements(*h, max_slots=32) for h in headers]
-        dev = self.device
-        hv, hl = (torch.as_tensor(np.stack([e[i] for e in elems]), device=dev)
-                  for i in range(2))
-        qps_np = np.array(qps, np.int32)
-        ql = torch.as_tensor(np.stack([qps_np, C.LAMBDA_TAB[qps_np]]),
-                             device=dev)
-        grid = (self.S, self.mb_h, self.mb_w)
-        qp_mb, lam = (ql[i][:, None, None].expand(grid).contiguous()
-                      for i in range(2))
-        return headers, dict(hv=hv, hl=hl, qp_mb=qp_mb, lam=lam,
-                             slice_qp=ql[0])
+        """core.slot_inputs for this encoder's S streams at the QPs
+        `qps`. Returns (headers, inputs)."""
+        return C.slot_inputs(self, slice_type, qps, idr_pic_id)
 
     # ------------------------------------------------------------------
     def encode_batch(self, pics):

@@ -15,8 +15,10 @@ is a direct indexed gather from the pyramid with clamped coordinates,
 which reads the same pixels (the MVs are clipped so that no read leaves
 the JAX pad). The loops have a fixed count and no host sync.
 
-``SlicetypeDecider`` (the scenecut and keyint logic) is not ported: the
-BatchEncoder's GOP is lockstep and needs only the cost.
+``SlicetypeDecider`` (slicetype.py:248, the scenecut and keyint logic)
+serves the single-stream Encoder on top of the same cost pass, with one
+pull of the frame summary per frame; the BatchEncoder's GOP is lockstep
+and reads only the cost.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import params as P
 from ..ops import mc as MC
 from ..ops import pixel as PX
 from ..ops.devtab import device_table
@@ -196,3 +199,69 @@ def frame_summary(fenc_low, fref_low4, bw: int, bh: int, do_edges: bool):
         return mm.sum((1, 2), dtype=_I64)[:, None]
     return torch.cat([total(icost), total(pcost), icost.sum(2, dtype=_I64),
                       pcost.sum(2, dtype=_I64)], 1)
+
+
+class SlicetypeDecider:
+    """GOP/IDR decision state of one stream (slicetype.py:248,
+    x264_slicetype_decide, slicetype.c:438)."""
+
+    def __init__(self, param: P.Param):
+        self.param = param
+        self.last_keyframe = -(1 << 30)
+        self.prev_lowres = None
+        self.frame_idx = 0
+        self.row_costs = None
+
+    def decide(self, fenc_y):
+        """Returns (slice_type, is_idr, frame_cost) for the next frame and
+        advances the state. fenc_y: the padded (H, W) luma plane, a tensor
+        on the encoder's device."""
+        p = self.param
+        h, w = fenc_y.shape[-2:]
+        bw, bh = w // 16, h // 16
+        low4 = MC.lowres_planes(fenc_y.reshape(1, h, w))
+        gop = self.frame_idx - self.last_keyframe
+        # with periodic intra refresh only frame 0 takes the keyint_max
+        # IDR (slicetype.c:516)
+        keyint_applies = (not p.b_intra_refresh) or self.frame_idx == 0
+        first = self.prev_lowres is None
+        force_i = (keyint_applies and gop >= p.i_keyint_max) or first
+        # the edge ring leaves the frame cost unless mb-tree or VBV needs
+        # the spatial distribution (do_edges, slicetype.c:286-294)
+        do_edges = bool(p.rc.b_mb_tree or p.rc.i_vbv_buffer_size
+                        or bw <= 2 or bh <= 2)
+        # one device-to-host pull: frame sums and per-row sums of both maps
+        vec = frame_summary(low4[:, 0], low4 if first else self.prev_lowres,
+                            bw, bh, do_edges)[0].cpu().numpy()
+        isum, psum = int(vec[0]), int(vec[1])
+        sc = True if first else self._scenecut(isum, psum, gop)
+        cost = isum if (force_i or sc) else psum
+        is_key = force_i or (sc and p.i_scenecut_threshold > 0
+                             and gop >= max(p.i_keyint_min, 1))
+        slice_type = P.SLICE_TYPE_I if is_key else P.SLICE_TYPE_P
+        if is_key:
+            self.last_keyframe = self.frame_idx
+        self.prev_lowres = low4   # the full pyramid: the next frame's ME
+        self.frame_idx += 1
+        # per-MB-row lowres cost (fdec->i_row_satd, slicetype.c:605-642)
+        rows = vec[2:2 + bh] if (force_i or sc) else vec[2 + bh:]
+        self.row_costs = rows.astype(np.int64)
+        return slice_type, is_key, cost
+
+    def _scenecut(self, icost: int, pcost: int, gop: int) -> bool:
+        """Copy of slicetype.py:326 _scenecut (slicetype.c:324-367)."""
+        p = self.param
+        tmax = p.i_scenecut_threshold
+        if tmax <= 0:
+            return False
+        tmin = tmax >> 2
+        if p.i_keyint_min == p.i_keyint_max:
+            tmin = tmax
+        if gop <= (p.i_keyint_min >> 2):
+            bias = tmin >> 2
+        elif gop <= p.i_keyint_min:
+            bias = tmin * gop // p.i_keyint_min
+        else:
+            bias = tmin + (tmax - tmin) * (gop - p.i_keyint_min) \
+                // max(p.i_keyint_max - p.i_keyint_min, 1)
+        return 100 * pcost >= (100 - bias) * icost

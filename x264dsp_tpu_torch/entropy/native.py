@@ -1,4 +1,4 @@
-"""ctypes loader for the host C++ CAVLC slice writers
+"""ctypes loader for the host C++ slice writers, CAVLC and CABAC
 (``csrc/host/entropy.cpp``).
 
 Copied from x264dsp_tpu/entropy/native.py (the C++ source byte for byte
@@ -7,8 +7,11 @@ from x264dsp_tpu/entropy/native/entropy.cpp), with three differences:
   (listed in ``.gitignore``), named by a hash of the source and renamed
   into place atomically, so two checkouts or two processes never share or
   race on one file;
-- only the CAVLC tables are loaded (the port has no CABAC);
-- a failed build raises: there is no Python-writer fallback.
+- a failed build raises: there is no Python-writer fallback;
+- ``write_slice_cabac`` takes no device-binarized residual stream (the
+  JAX package's ``res_ops`` front half, entropy/cabac_device.py, is not
+  ported: the C++ writer binarizes every block itself) and returns no
+  per-row bits (row VBV is not ported).
 """
 
 from __future__ import annotations
@@ -47,12 +50,12 @@ def _build() -> Path:
         try:
             res = subprocess.run(flags, capture_output=True, text=True)
         except FileNotFoundError as e:
-            raise RuntimeError(f"the C++ CAVLC writers need g++: {e}") from e
+            raise RuntimeError(f"the C++ slice writers need g++: {e}") from e
         if res.returncode == 0:
             os.replace(tmp, lib_path)
             return lib_path
         errors.append(res.stderr)
-    raise RuntimeError("g++ failed to build the C++ CAVLC writers:\n"
+    raise RuntimeError("g++ failed to build the C++ slice writers:\n"
                        + "\n".join(errors))
 
 
@@ -68,6 +71,7 @@ def get_lib():
         lib = ctypes.CDLL(str(_build()))
         lib.x264tpu_write_slice_i.restype = ctypes.c_int64
         lib.x264tpu_write_slice_p.restype = ctypes.c_int64
+        lib.x264tpu_write_slice_cabac.restype = ctypes.c_int64
 
         from .cavlc_tables import (COEFF0_TOKEN, COEFF_TOKEN, TOTAL_ZEROS,
                                    TOTAL_ZEROS_2x2_DC)
@@ -80,6 +84,18 @@ def get_lib():
             ct.ctypes.data_as(ctypes.c_void_p),
             tz.ctypes.data_as(ctypes.c_void_p),
             tzdc.ctypes.data_as(ctypes.c_void_p))
+
+        from .cabac_tables import (CONTEXTS, RANGE_LPS, RENORM_SHIFT,
+                                   TRANSITION)
+        cx = np.ascontiguousarray(CONTEXTS, np.uint8)
+        rl = np.ascontiguousarray(RANGE_LPS, np.uint8)
+        rs = np.ascontiguousarray(RENORM_SHIFT, np.uint8)
+        tr = np.ascontiguousarray(TRANSITION, np.uint8)
+        lib.x264tpu_set_cabac_tables(
+            cx.ctypes.data_as(ctypes.c_void_p),
+            rl.ctypes.data_as(ctypes.c_void_p),
+            rs.ctypes.data_as(ctypes.c_void_p),
+            tr.ctypes.data_as(ctypes.c_void_p))
         _lib = lib
     return _lib
 
@@ -99,7 +115,15 @@ def _qp_arg(keep, qp_mb):
 
 
 _tls = threading.local()   # per-thread buffers: slice writers run
-                           # concurrently in a pool for multi-stream
+_zero_bufs: dict = {}      # concurrently in a pool for multi-stream
+
+
+def _zeros_cached(shape) -> np.ndarray:
+    buf = _zero_bufs.get(shape)
+    if buf is None:
+        buf = np.zeros(shape, np.int16)
+        _zero_bufs[shape] = buf
+    return buf
 
 
 def _out_buf(cap: int) -> np.ndarray:
@@ -178,3 +202,54 @@ def write_slice_p(header_bits: tuple, mb_w: int, mb_h: int, qp: int,
     args.append(_row_bits_arg(row_bits))
     n = lib.x264tpu_write_slice_p(*args)
     return out[:n].tobytes(), int(skip_count.value)
+
+
+def write_slice_cabac(header: bytes, mb_w: int, mb_h: int, qp: int,
+                      frame_idx: int, is_p: bool, syn: dict, qp_mb=None,
+                      n_ref: int = 1):
+    """C++ CABAC slice body. header must be byte-aligned (the
+    cabac_alignment_one_bit already written). Returns (payload, counts)
+    with counts the MBs coded as [I_16x16, I_4x4, P_L0, P_SKIP, P_16x8,
+    P_8x16, P_8x8]."""
+    lib = get_lib()
+    cap = mb_w * mb_h * 1024 + len(header) + 4096
+    out = _out_buf(cap)
+    hdr = np.frombuffer(header, np.uint8)
+    counts = np.zeros(7, np.int32)
+    zeros16 = _zeros_cached((mb_h, mb_w, 16))
+    zeros1 = _zeros_cached((mb_h, mb_w))
+    zeros2 = _zeros_cached((mb_h, mb_w, 2))
+    zeros24 = _zeros_cached((mb_h, mb_w, 2, 4))
+
+    def get(k, fb):
+        return _i32(syn[k]) if k in syn and syn[k] is not None else fb
+
+    keep = []
+    args = [out.ctypes.data_as(ctypes.c_void_p), ctypes.c_int64(cap),
+            hdr.ctypes.data_as(ctypes.c_void_p),
+            ctypes.c_int64(len(header)),
+            ctypes.c_int(1 if is_p else 0),
+            ctypes.c_int(mb_w), ctypes.c_int(mb_h), ctypes.c_int(qp),
+            ctypes.c_int(frame_idx)]
+    for k, fb in (("mb_type", zeros1), ("i16_mode", zeros1),
+                  ("i4_modes", zeros16), ("chroma_mode", zeros1),
+                  ("cbp_luma", None), ("cbp_chroma", None),
+                  ("nz_luma_dc", zeros1), ("chroma_nz_dc", zeros2),
+                  ("luma_nnz", zeros16), ("chroma_nnz_ac", zeros24),
+                  ("luma_levels", None), ("luma_dc_levels", zeros16),
+                  ("chroma_dc_levels", None), ("chroma_ac_levels", None),
+                  ("mv", zeros2)):
+        arr = get(k, fb)
+        keep.append(arr)
+        args.append(arr.ctypes.data_as(ctypes.c_void_p))
+    args.append(counts.ctypes.data_as(ctypes.c_void_p))
+    args.append(_qp_arg(keep, qp_mb))
+    args.append(_qp_arg(keep, syn.get("partition") if is_p else None))
+    args.append(_qp_arg(keep, syn.get("mv8") if is_p else None))
+    args.append(_qp_arg(keep, syn.get("ref") if is_p else None))
+    args.append(ctypes.c_int(n_ref))
+    args.append(ctypes.c_void_p(0))         # row_bits: no row VBV
+    args.append(ctypes.c_void_p(0))         # res_ops: not ported
+    args.append(ctypes.c_void_p(0))         # res_off
+    n = lib.x264tpu_write_slice_cabac(*args)
+    return out[:n].tobytes(), counts

@@ -1,5 +1,6 @@
 """Pixel metrics — port of x264dsp_tpu/ops/pixel.py (SAD and SATD of
-common/pixel.c), int32 over arbitrary leading batch dims."""
+common/pixel.c, int32 over arbitrary leading batch dims, and the SSIM of
+two planes)."""
 
 from __future__ import annotations
 
@@ -49,3 +50,30 @@ def satd(a, b):
 def satd_4x4(a, b):
     """(..., 4, 4) -> (...,) — pixel_satd_4x4 (common/pixel.c:267-291)."""
     return _hadamard_abs(a.to(torch.int32) - b.to(torch.int32)) >> 1
+
+
+def ssim_wxh(pix1, pix2):
+    """Structural similarity of two (H, W) planes — pixel.py:80 ssim_wxh
+    (x264_pixel_ssim_wxh, common/pixel.c:565-658): per-4x4-block integer
+    sums over overlapping 8x8 windows (2x2 neighbouring blocks), x264's
+    integer ssim_end1 constants, the ratio in float32. Returns (ssim_sum,
+    cnt) with cnt = (h//4 - 1) * (w//4 - 1)."""
+    h4, w4 = pix1.shape[0] // 4, pix1.shape[1] // 4
+    a = pix1[:h4 * 4, :w4 * 4].to(torch.int64).reshape(h4, 4, w4, 4)
+    b = pix2[:h4 * 4, :w4 * 4].to(torch.int64).reshape(h4, 4, w4, 4)
+    s1, s2 = a.sum((1, 3)), b.sum((1, 3))
+    ss = (a * a).sum((1, 3)) + (b * b).sum((1, 3))
+    s12 = (a * b).sum((1, 3))
+
+    def win(x):  # 2x2 block-window sums -> (h4-1, w4-1)
+        return x[:-1, :-1] + x[:-1, 1:] + x[1:, :-1] + x[1:, 1:]
+
+    fs1, fs2, fss, fs12 = win(s1), win(s2), win(ss), win(s12)
+    c1 = int(.01 * .01 * 255 * 255 * 64 + .5)
+    c2 = int(.03 * .03 * 255 * 255 * 64 * 63 + .5)
+    vars_ = fss * 64 - fs1 * fs1 - fs2 * fs2
+    covar = fs12 * 64 - fs1 * fs2
+    f32 = torch.float32
+    num = (2 * fs1 * fs2 + c1).to(f32) * (2 * covar + c2).to(f32)
+    den = (fs1 * fs1 + fs2 * fs2 + c1).to(f32) * (vars_ + c2).to(f32)
+    return (num / den).sum(), (h4 - 1) * (w4 - 1)

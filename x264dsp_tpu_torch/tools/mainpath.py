@@ -13,7 +13,11 @@
   on the synthetic clip with a noise scale per stream, so that the
   streams' rate controls pick different QPs; and the two rate-controlled
   settings that the small card-against-CPU checks drive: CRF with UMH
-  and subme 0, ABR with ESA and the partitions.
+  and subme 0, ABR with ESA and the partitions;
+- encoder: the single-stream Encoder at param_default() (CRF 28, CABAC,
+  scenecut, keyint 50), and the small clip with a scene cut and the CQP
+  + CABAC settings with forced frame types and QPs that hold it to the
+  JAX Encoder (tests/test_torch_encoder.py) and the card to the CPU.
 
 The parameter helpers set their fields on ``p`` when given (any Param
 with the package's fields: the tests pass the JAX package's so that both
@@ -24,6 +28,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..params import TYPE_I, TYPE_IDR
 
 
 def main_path_param(w: int, h: int, qp: int = 26, keyint: int = 50, p=None):
@@ -90,6 +96,105 @@ def abr_esa_param(w: int, h: int, keyint: int, p=None):
     p.analyse.i_subpel_refine = 2
     p.analyse.inter = P.ANALYSE_PSUB16x16
     return p
+
+
+def encoder_param(w: int, h: int, p=None):
+    """param_default() at w x h: what an x264.h user gets without asking
+    (CRF 28, CABAC, scenecut 20, keyint 50, DIA, subme 1, one reference,
+    deblock on)."""
+    from .. import params as P
+    p = P.param_default() if p is None else p
+    p.i_width, p.i_height = w, h
+    return p
+
+
+def encoder_cqp_param(w: int, h: int, p=None):
+    """CQP 20 with CABAC, HEX, subme 4, the 16x8/8x16/8x8 partitions,
+    deblock offsets (-2, 1) (so the filter is off at the I frames' QP 17
+    and on at the P frames' 20), chroma QP offset 2, PSNR and SSIM, no
+    in-band headers; drive it with ENCODER_FORCED."""
+    from .. import params as P
+    p = encoder_param(w, h, p)
+    p.rc.i_rc_method = P.RC_CQP
+    p.rc.i_qp_constant = 20
+    p.analyse.inter = P.ANALYSE_PSUB16x16
+    p.analyse.i_me_method = P.ME_HEX
+    p.analyse.i_subpel_refine = 4
+    p.analyse.i_chroma_qp_offset = 2
+    p.analyse.b_psnr = p.analyse.b_ssim = 1
+    p.i_deblocking_filter_alphac0, p.i_deblocking_filter_beta = -2, 1
+    p.b_repeat_headers = 0
+    return p
+
+
+# encoder_cqp_param's Picture fields per frame: a forced IDR, a forced I
+# inside keyint_min (a non-IDR I) and a P frame forced to QP 18 (the
+# filter off)
+ENCODER_FORCED = {2: {"i_type": TYPE_IDR}, 4: {"i_type": TYPE_I},
+                  5: {"i_qpplus1": 19}}
+
+
+def scene_cut_clip(w: int = 56, h: int = 40, n: int = 8, cut: int = 6):
+    """n frames of (y, u, v) uint8 numpy planes: a moving texture whose
+    luma inverts at frame `cut`, a scene cut that the lowres costs see (no
+    P block beats its intra cost)."""
+    rng = np.random.default_rng(1)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    frames = []
+    for t in range(n):
+        y = (110 + 60 * np.sin((xx + 2 * t) / 13.0) * np.cos(yy / 17.0)
+             + rng.normal(0, 2, (h, w))).clip(0, 255).astype(np.uint8)
+        if t >= cut:
+            y = 255 - y
+        u = (120 + 30 * np.sin((xx[::2, ::2] + t) / 23.0)).clip(
+            0, 255).astype(np.uint8)
+        v = (128 + 30 * np.cos((yy[::2, ::2] + t) / 29.0)).clip(
+            0, 255).astype(np.uint8)
+        frames.append((y, u, v))
+    return frames
+
+
+def encode_clip(enc, frames, forced=None, picture=None):
+    """Encode (y, u, v) frames (numpy or tensors) with an Encoder, each
+    Picture (`picture`, the port's by default) with the fields of
+    forced[t]. Returns the headers and each frame's NALs as (type,
+    bytes), the pic_outs, what encode(None) returns after the last frame
+    (tail) and the close() summary."""
+    if picture is None:
+        from ..api import Picture as picture
+    headers = [(n.i_type, n.payload) for n in enc.headers()]
+    nals, pics = [], []
+    for t, planes in enumerate(frames):
+        pic = picture.from_planes(*planes, pts=t)
+        for k, v in (forced or {}).get(t, {}).items():
+            setattr(pic, k, v)
+        out, po = enc.encode(pic)
+        nals.append([(n.i_type, n.payload) for n in out])
+        pics.append(po)
+    tail = enc.encode(None)
+    return dict(headers=headers, nals=nals, pics=pics, tail=tail,
+                summary=enc.close())
+
+
+def encode_diff(a: dict, b: dict):
+    """The first difference between two encode_clip results (headers,
+    NALs, pic_out types, QPs and planes, close() summary) as text, or
+    None when they are equal."""
+    if a["headers"] != b["headers"]:
+        return "headers"
+    for t, (na, nb) in enumerate(zip(a["nals"], b["nals"])):
+        if na != nb:
+            return f"NALs of frame {t}"
+    for t, (pa, pb) in enumerate(zip(a["pics"], b["pics"])):
+        if (pa.i_frame_type, pa.i_frame_qp) != (pb.i_frame_type,
+                                                pb.i_frame_qp):
+            return f"type or QP of frame {t}"
+        for plane in "yuv":
+            if not np.array_equal(getattr(pa, plane), getattr(pb, plane)):
+                return f"pic_out {plane} of frame {t}"
+    if len(a["nals"]) != len(b["nals"]) or a["summary"] != b["summary"]:
+        return "close() summary"
+    return None
 
 
 def synth_clip(w: int, h: int, device, sigma: float = 2.0):
@@ -162,8 +267,8 @@ def stacked_slot(frame, t: int, S: int):
 
 def payload_vs_writers(be):
     """Hold the newest slot's device CAVLC payloads to the host C++
-    writers: `be` is a BatchEncoder with keep_syntax set that has just
-    encoded a slot. Pulls that slot's syntax once, writes every stream's
+    writers: `be` is a BatchEncoder (or an Encoder's core) with
+    keep_syntax set that has just encoded a slot (a frame). Pulls that slot's syntax once, writes every stream's
     slice with native.write_slice_p / _i, with that stream's slice header
     and QP, and compares bytes, bit counts and skip counts. Returns the
     streams' bit counts; raises RuntimeError on the first difference."""
@@ -171,14 +276,15 @@ def payload_vs_writers(be):
     from ..encoder import core as C
     from ..entropy import native
     slot = be.last_slot
+    S = len(slot["qps"])
     is_p = slot["slice_type"] == P.SLICE_TYPE_P
-    host = C.pull_syntax(slot["syn"], C.SYN_P if is_p else C.SYN_I, be.S)
+    host = C.pull_syntax(slot["syn"], C.SYN_P if is_p else C.SYN_I, S)
     bits = slot["bits"].cpu().numpy()
     payload = slot["payload"].cpu().numpy()
     n_skip = slot["n_skip"].cpu().numpy()
     if slot["ov"].any().item():
         raise RuntimeError("the device packer raised its overflow flag")
-    for s in range(be.S):
+    for s in range(S):
         qp, header = slot["qps"][s], slot["headers"][s]
         grid = np.full((be.mb_h, be.mb_w), qp, np.int16)
         if is_p:
@@ -196,3 +302,70 @@ def payload_vs_writers(be):
                 f"{n_skip[s]} skips) differs from the host writer's "
                 f"({len(want)} bytes, {want_skip} skips)")
     return [int(b) for b in bits]
+
+
+def cabac_twin(param, run, frames, n: int):
+    """Hold a CABAC Encoder run to its CAVLC twin over its first n frames.
+    `run` is encode_clip's result for `frames` under `param` (CABAC, no
+    forced fields). The twin (CAVLC, keep_syntax, on the device of
+    frames[0]) encodes each frame forced to the run's QP; the analysis does
+    not read the entropy mode, so:
+      - its frame type, QP and pic_out planes must be the run's;
+      - its device CAVLC payload must equal the host C++ writers'
+        (payload_vs_writers);
+      - its syntax, every key of the device dict but the recon planes
+        pulled on its own (so that neither the Encoder's key lists
+        SYN_CABAC_P / SYN_CABAC_I nor its int16 pull_syntax is taken on
+        trust), written by the C++ CABAC writer under `param` with the
+        twin's slice header fields (frame_num, idr_pic_id, the input frame
+        counter), must give the run's slice NAL byte for byte.
+    Returns each frame's device payload bits; raises RuntimeError on the
+    first difference."""
+    import copy
+
+    from .. import params as P
+    from ..api import Encoder, Picture
+    from ..encoder import core as C
+    from ..entropy.bitstream import nal_unit
+    twin_param = copy.deepcopy(param)
+    twin_param.b_cabac = 0
+    twin = Encoder(twin_param, device=frames[0][0].device
+                   if torch.is_tensor(frames[0][0]) else "cpu")
+    core = twin._core
+    core.keep_syntax = True
+    # the writer only writes slices: its counters are set from the twin's
+    writer = C.EncoderCore(copy.deepcopy(param), device="cpu")
+    bits = []
+    for t in range(n):
+        want = run["pics"][t]
+        fields = (core.frame_num, core.i_frame, core.idr_pic_id)
+        pic = Picture.from_planes(*frames[t], pts=t)
+        pic.i_qpplus1 = want.i_frame_qp + 1
+        _, po = twin.encode(pic)
+        if (po.i_frame_type, po.i_frame_qp) != (want.i_frame_type,
+                                                want.i_frame_qp) or not all(
+                np.array_equal(getattr(po, k), getattr(want, k))
+                for k in "yuv"):
+            raise RuntimeError(f"frame {t}: the CAVLC twin's type, QP or "
+                               "pic_out differs from the CABAC run's")
+        bits.append(payload_vs_writers(core)[0])
+        slot = core.last_slot
+        is_p = slot["slice_type"] == P.SLICE_TYPE_P
+        host = {k: v[0].cpu().numpy() for k, v in slot["syn"].items()
+                if torch.is_tensor(v) and not k.startswith("recon")}
+        is_idr = po.i_frame_type == P.TYPE_IDR
+        # an IDR resets frame_num before its slice header is written
+        writer.frame_num = 0 if is_idr else fields[0]
+        writer.i_frame = fields[1]
+        payload, _ = writer._write_slice_cabac(
+            host, slot["slice_type"], po.i_frame_qp,
+            fields[2] if is_idr else -1)
+        nal_type = P.NAL_SLICE_IDR if is_idr else P.NAL_SLICE
+        slices = [b for ty, b in run["nals"][t]
+                  if ty in (P.NAL_SLICE, P.NAL_SLICE_IDR)]
+        if slices != [nal_unit(nal_type, P.NAL_PRIORITY_HIGHEST, payload)]:
+            raise RuntimeError(f"frame {t}: the C++ CABAC writer on the "
+                               "twin's syntax differs from the CABAC run's "
+                               "slice")
+    twin.close()
+    return bits

@@ -1,4 +1,4 @@
-"""Where a BatchEncoder slot's time goes on one GPU.
+"""Where a BatchEncoder slot's and an Encoder frame's time goes on one GPU.
 
     python -m x264dsp_tpu_torch.tools.profile_slot [--streams 8]
                                                   [--corner 128x64]
@@ -28,6 +28,17 @@ the main path's synthetic clip and settings (tools/mainpath.py):
              noise scale per stream (tools/mainpath.py detail_clips): the
              step starts with the lowres cost pass and its pull, and the
              slice QPs are one RateControl decision per stream.
+  Encoder frame
+             a P frame of the single-stream Encoder at param_default()
+             (CRF 28, CABAC through the host C++ writer, scenecut) at
+             1920x1080 on the synthetic clip, through encode(): the
+             unprofiled wall, one profiled run as above, and the
+             Encoder's own stage split (profile=True: slicetype, encode,
+             syntax_pull, deblock, ref_planes, cabac). The Encoder starts
+             from the state an I frame leaves (the decider has seen the
+             previous frame, the DPB holds its reference planes) without
+             the I frame's host-bound encode; each measurement encodes
+             the clip's next frame.
 
 Each P step also prints its stage split ("P step ... stages"): one more
 run with a device sync around each stage of encode_p_frame (the full-pel
@@ -179,6 +190,54 @@ def p_step(label, be, frame, S, dev):
           + f" (sum {sum(split.values()):.2f})")
 
 
+def encoder_frame(dev) -> None:
+    """Measure P frames of the single-stream Encoder (the Encoder frame
+    lines of the module docstring)."""
+    import x264dsp_tpu_torch as xtt
+    from x264dsp_tpu_torch.encoder import core as C
+    from x264dsp_tpu_torch.ops import mc as MC
+    from .mainpath import encoder_param, synth_clip
+    h = 1080
+    frame = synth_clip(W, H, dev)
+    planes = [[a[:h >> (i > 0)] for i, a in enumerate(frame(1.0 + t))]
+              for t in range(5)]
+    enc = xtt.Encoder(encoder_param(W, h), device="cuda")
+    core = enc._core
+    y0, u0, v0 = (C.pad_mod16_tensor(a, m)[None]
+                  for a, m in zip(planes[0], (16, 8, 8)))
+    core.slicetype.decide(y0[0])
+    core.dpb = [(MC.make_ref_planes(y0).contiguous(),
+                 MC.pad_chroma(u0).contiguous(), MC.pad_chroma(v0).contiguous())]
+    core.i_frame = core.frame_num = 1
+    pics = iter(xtt.Picture.from_planes(*pl) for pl in planes[1:])
+    out = []
+
+    def run():
+        out.append(enc.encode(next(pics)))
+    run()                                          # warm-up
+    t = wall(run)
+    nals, po = out[-1]
+    if po.i_frame_type != xtt.TYPE_P:
+        sys.exit("the Encoder frame is not a P frame")
+    print(f"Encoder frame {W}x{h} param_default (CRF 28, CABAC), P, QP "
+          f"{po.i_frame_qp}, {sum(len(n.payload) for n in nals)} bytes: "
+          f"unprofiled {t * 1e3:.2f} ms")
+    tp, n_ops, busy, per = device_profile(run)
+    print(f"Encoder frame profiled: wall {tp * 1e3:.2f} ms, device "
+          f"{busy:.2f} ms = {100 * busy / (tp * 1e3):.1f}% of the profiled "
+          f"wall, {100 * busy / (t * 1e3):.1f}% of the unprofiled wall; "
+          f"{n_ops} device ops")
+    print("Encoder frame kernels, device ms: "
+          + ", ".join(f"{k} {ms:.3f}" for k, ms in per.items())
+          + f" (sum {sum(per.values()):.3f})")
+    core.clock.enabled = True
+    run()
+    split = {k: v * 1e3 for k, v in core.frame_times[-1][1].items()}
+    print("Encoder frame stages, synchronized ms: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in split.items())
+          + f" (sum {sum(split.values()):.2f})")
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--streams", type=int, default=8)
@@ -247,6 +306,7 @@ def main(argv=None) -> None:
     be = xtt.BatchEncoder(param, S, device="cuda")
     p_step("P step crf-esa", be, detail_clips(W, H, dev, S), S, dev)
     be.close()
+    encoder_frame(dev)
 
 
 if __name__ == "__main__":
