@@ -28,10 +28,14 @@ Phases (any failure exits non-zero):
      subme 0, and ABR at 200 kbit/s with ESA, subme 2 and partitions:
      identical bytes and per-stream QPs; and the single-stream Encoder on
      a 56x40 clip with a scene cut (8 frames, the card's frames as CUDA
-     tensors, the CPU's as numpy), at param_default() (CRF 28, CABAC) and
+     tensors, the CPU's as numpy), at param_default() (CRF 28, CABAC),
      at CQP 20 + CABAC + HEX, subme 4, partitions with forced frame types
-     and QPs: identical headers, NALs, frame types, QPs, pic_out planes
-     and close() summary;
+     and QPs, and at phase 9's live-stream CBR (NAL HRD, variance AQ, the
+     lookahead queue of 4 frames) cut to 40 kbit/s with a 6 kbit buffer,
+     so that the row-VBV walk re-encodes and the CPB overflows into filler
+     NALs, under CABAC and under CAVLC (whose row bits come from the
+     device packer): identical headers, calls that return no frame, NALs,
+     frame types, QPs, pic_out planes and close() summary;
   4. the main path: BatchEncoder at 1920x1088, S = 8, QP 26, keyint 50,
      CAVLC, DIA, subme 1, one I slot and four P slots of a synthetic clip;
      prints fps and the per-stage split, and holds the device payload of
@@ -60,8 +64,22 @@ Phases (any failure exits non-zero):
      split); and a CAVLC twin of the first two frames, each forced to the
      CRF run's QP, whose pic_out must equal the CABAC run's, whose device
      CAVLC payload must equal the host C++ writers' and whose syntax,
-     written by the C++ CABAC writer, must give the CABAC run's slices.
-Phases 4 to 8 each set the launch counters to 0 just before they drive
+     written by the C++ CABAC writer, must give the CABAC run's slices;
+  9. encoder-cbr: the Encoder as a live stream into an ingest server at
+     1920x1080, 30 fps, keyint 60: CBR at 6000 kbit/s (ABR with VBV max
+     rate = buffer = 6000 kbit, NAL HRD CBR), variance AQ at strength 1.0,
+     i_lookahead 4, the rest param_default(). The stream opens on a flat
+     slate for 4 frames (an IDR and 3 P: the CPB starts 90% full and the
+     slate spends almost nothing, so it overflows into filler), then cuts
+     to stream 0 of phase 4's clip cut to 1080 rows for 5 P frames (the
+     cut falls inside keyint_min: no IDR), all as CUDA tensors, then the
+     drain with encode(None): the fps, each frame's type, QP (and the
+     range of its per-MB QPs), bytes, filler bytes and device encodes,
+     the buffering-period SEI's delay and offset; then profiled with the
+     same bytes (the stage split, with aq and vbv). Requires K1, K2a, K2b
+     and K3 launches, an AQ spread on some frame, a filler NAL and a luma
+     PSNR of 30 dB or more.
+Phases 4 to 9 each set the launch counters to 0 just before they drive
 the encoder and read them just after; a kernel of the path that was
 never launched fails the run. The line before the last is the kernels'
 JSON record; the last line is {"ok": true, "device": {...}}. Imports
@@ -520,22 +538,45 @@ def card_vs_cpu():
 
 
 def encoder_card_vs_cpu():
-    """Phase 3, the Encoder: the scene-cut clip at param_default() and
-    at the CQP + CABAC settings with forced types and QPs, the card
-    against the CPU."""
+    """Phase 3, the Encoder: the scene-cut clip at param_default(), at the
+    CQP + CABAC settings with forced types and QPs, and at the live-stream
+    CBR cut to 40 kbit/s and a 6 kbit buffer under CABAC and CAVLC, the
+    card against the CPU."""
     import torch
     import x264dsp_tpu_torch as xtt
+    from x264dsp_tpu_torch import params as P
     from x264dsp_tpu_torch.tools.mainpath import (ENCODER_FORCED,
                                                   encode_clip, encode_diff,
+                                                  encoder_cbr_param,
                                                   encoder_cqp_param,
                                                   encoder_param,
                                                   scene_cut_clip)
+    from x264dsp_tpu_torch.encoder.ratecontrol import log2_f32
+    # variance AQ's log2 (the JAX package's float32 log2) on the card and
+    # on the CPU at every integer energy below 2**23
+    e = torch.arange(1, 1 << 23, dtype=torch.float32)
+    n_diff = int((log2_f32(e.cuda()).cpu().view(torch.int32)
+                  != log2_f32(e).view(torch.int32)).sum())
+    print(f"AQ log2_f32, card vs CPU at the {e.numel()} integer energies: "
+          f"{n_diff} differ")
+    if n_diff:
+        fail("AQ's log2 differs between the card and the CPU")
     w, h = 56, 40
     frames = scene_cut_clip(w, h)
+
+    def cbr(w, h, cabac):
+        p = encoder_cbr_param(w, h, 40)
+        p.rc.i_vbv_buffer_size = 6
+        p.b_cabac = cabac
+        return p
     for label, make, forced in (
             ("param_default", encoder_param, {}),
             ("CQP 20 + CABAC + HEX + partitions, forced types and QPs",
-             encoder_cqp_param, ENCODER_FORCED)):
+             encoder_cqp_param, ENCODER_FORCED),
+            ("CBR 40 kbit/s, 6 kbit buffer, HRD, AQ, lookahead 4, CABAC",
+             lambda w, h: cbr(w, h, 1), {}),
+            ("CBR 40 kbit/s, 6 kbit buffer, HRD, AQ, lookahead 4, CAVLC",
+             lambda w, h: cbr(w, h, 0), {})):
         runs = {}
         for dev in ("cuda", "cpu"):
             clip = ([[torch.as_tensor(a, device=dev) for a in f]
@@ -544,12 +585,15 @@ def encoder_card_vs_cpu():
                                     clip, forced)
         diff = encode_diff(runs["cuda"], runs["cpu"])
         pics = runs["cpu"]["pics"]
+        fillers = sum(t == P.NAL_FILLER for nl in runs["cpu"]["nals"]
+                      for t, _ in nl)
         print(f"card vs CPU, Encoder {label} {w}x{h}, {len(frames)} frames: "
               f"types {[po.i_frame_type for po in pics]} QPs "
               f"{[po.i_frame_qp for po in pics]} bytes "
               f"{sum(len(b) for nl in runs['cpu']['nals'] for _, b in nl)} "
+              f"waiting {runs['cpu']['waiting']} filler NALs {fillers} "
               f"identical={diff is None}")
-        if diff is not None:
+        if diff is not None or len(pics) != len(frames):
             fail(f"the card's Encoder differs from the CPU's ({label}): "
                  f"{diff}")
 
@@ -814,6 +858,108 @@ def encoder_path(n_p: int = 3):
     return launches
 
 
+def encoder_cbr_path(n_slate: int = 4, n_clip: int = 5):
+    """Phase 9: the Encoder as a live stream's CBR (mainpath.
+    encoder_cbr_param: 6000 kbit/s, NAL HRD, variance AQ, lookahead 4) at
+    1920x1080: n_slate frames of a flat slate (an IDR, then P frames that
+    spend next to nothing, so the CPB overflows into filler), then n_clip
+    P frames of phase 4's clip (the cut inside keyint_min), then the
+    drain; unprofiled and profiled."""
+    import torch
+    import x264dsp_tpu_torch as xtt
+    from x264dsp_tpu_torch import params as P
+    from x264dsp_tpu_torch.tools.mainpath import encoder_cbr_param, synth_clip
+    h = 1080
+    dev = torch.device("cuda")
+    frame = synth_clip(W, H, dev)
+    slate = [torch.full((h >> (i > 0), W >> (i > 0)), 128, dtype=torch.uint8,
+                        device=dev) for i in range(3)]
+    frames = [slate] * n_slate + [
+        [a[:h >> (i > 0)] for i, a in enumerate(frame(1.0 + t))]
+        for t in range(n_clip)]
+    param = encoder_cbr_param(W, h)
+
+    def run(profile):
+        """Encode and drain; returns the frames' (NALs, pic_out,
+        last_frame), the calls that returned nothing, and the core."""
+        enc = xtt.Encoder(param, profile=profile)
+        out, waiting = [], 0
+
+        def keep(nals, po):
+            if po is not None:
+                out.append((nals, po, enc._core.last_frame))
+            return po is not None
+        for t, f in enumerate(frames):
+            waiting += not keep(*enc.encode(xtt.Picture.from_planes(*f,
+                                                                    pts=t)))
+        while keep(*enc.encode(None)):
+            pass
+        enc.close()
+        return out, waiting, enc._core
+
+    torch.cuda.synchronize()
+    xtt.reset_kernel_launches()
+    t0 = time.perf_counter()
+    out, waiting, _ = run(False)
+    wall = time.perf_counter() - t0
+    launches = xtt.kernel_launches()
+    print(f"encoder-cbr {W}x{h} CBR 6000 kbit/s, NAL HRD, AQ, lookahead 4: "
+          f"{n_slate} slate + {n_clip} clip frames (1 I + "
+          f"{n_slate + n_clip - 1} P) in {wall:.3f} s = "
+          f"{len(frames) / wall:.3f} fps; {waiting} calls waited, "
+          f"{len(out)} frames out")
+    for t, (nals, po, rec) in enumerate(out):
+        size = sum(len(n.payload) for n in nals)
+        print(f"encoder-cbr frame {t}: type {po.i_frame_type} QP "
+              f"{po.i_frame_qp} (per-MB {rec['qp_min']}..{rec['qp_max']}) "
+              f"bytes {size} filler {rec['filler']} device encodes "
+              f"{rec['encodes']} (row VBV {rec['row_vbv']}, re-encodes "
+              f"{rec['reencodes']})"
+              + (f" buffering period delay {rec['bp'][0]} offset "
+                 f"{rec['bp'][1]}" if rec["bp"] else ""))
+    print(f"kernel launches in encoder-cbr: {launches}")
+    missing = [k for k in ("sad_surface16", "luma_windows", "chroma_windows",
+                           "deblock") if launches[k] <= 0]
+    if missing:
+        fail(f"kernels of encoder-cbr never launched: {missing}")
+    worst = min(psnr(po.y, f[0].cpu().numpy())
+                for (_, po, _), f in zip(out, frames))
+    print(f"encoder-cbr recon: worst luma PSNR {worst:.2f} dB over "
+          f"{len(out)} frames")
+    types = [po.i_frame_type for _, po, _ in out]
+    fillers = sum(n.i_type == P.NAL_FILLER for nals, _, _ in out
+                  for n in nals)
+    if (types != [P.TYPE_IDR] + [P.TYPE_P] * (len(frames) - 1)
+            or worst < 30.0
+            or waiting != min(param.rc.i_lookahead, len(frames))
+            or [po.i_pts for _, po, _ in out] != list(range(len(frames)))):
+        fail("encoder-cbr output is wrong (frame types, order, the queue's "
+             "delay or PSNR < 30 dB)")
+    if not any(rec["qp_max"] > rec["qp_min"] for _, _, rec in out):
+        fail("encoder-cbr: AQ left every frame's per-MB QPs flat")
+    if not fillers or out[0][2]["bp"] is None:
+        fail("encoder-cbr wrote no filler NAL or no buffering-period SEI")
+
+    # the same frames, profiled: the same bytes and the stage split
+    again, _, core = run(True)
+    if [[n.payload for n in nals] for nals, _, _ in again] != \
+            [[n.payload for n in nals] for nals, _, _ in out]:
+        fail("the profiled encoder-cbr run wrote other bytes")
+    # frame_times is in output order: the slate's IDR and P frames, then
+    # the clip's P frames
+    times = [tm for _, tm in core.frame_times]
+    for name, rows in (("I (slate)", times[:1]),
+                       ("P (slate)", times[1:n_slate]),
+                       ("P (clip)", times[n_slate:])):
+        keys = sorted({k for r in rows for k in r})
+        avg = {k: 1000 * sum(r.get(k, 0.0) for r in rows) / len(rows)
+               for k in keys}
+        print(f"encoder-cbr {name} frame ms (mean of {len(rows)}): "
+              + " ".join(f"{k} {v:.2f}" for k, v in avg.items())
+              + f" | total {sum(avg.values()):.2f}")
+    return launches
+
+
 def main() -> None:
     sys.path.insert(0, str(ROOT))
     try:
@@ -843,6 +989,7 @@ def main() -> None:
     v2_path()
     # the S = 1 records are held to phase 8's launches
     encoder_launches = encoder_path()
+    encoder_cbr_path()
     for k in kernels:
         k["launches"] = (encoder_launches if k["streams"] == 1
                          else launches)[k["name"].split("[")[0]]

@@ -69,12 +69,14 @@ CASES = {"a": (_default, {}), "b": (_cqp_cabac, ENCODER_FORCED),
 
 def _encode(pkg, param, frames, forced, make_enc=None, as_tensor=False):
     """Encode `frames` with pkg's Encoder and Picture
-    (mainpath.encode_clip); encode(None) must return nothing."""
+    (mainpath.encode_clip); no frame may wait (no VBV, so no lookahead
+    queue) and encode(None) must return nothing."""
     enc = make_enc(param) if make_enc else pkg.Encoder(param)
     if as_tensor:
         frames = [[torch.from_numpy(a) for a in f] for f in frames]
     run = encode_clip(enc, frames, forced, pkg.Picture)
     assert run["tail"] == ([], None)
+    assert not run["waiting"] and len(run["pics"]) == len(frames)
     return run
 
 
@@ -289,9 +291,6 @@ def test_torch_picture_gives_numpy_bytes(frames, port_runs):
 
 
 REFUSED = {
-    "aq": lambda p: setattr(p.rc, "i_aq_mode", P.AQ_VARIANCE),
-    "vbv": lambda p: (setattr(p.rc, "i_vbv_buffer_size", 500),
-                      setattr(p.rc, "i_vbv_max_bitrate", 500)),
     "multi-ref": lambda p: setattr(p, "i_frame_reference", 2),
     "cqm": lambda p: setattr(p, "i_cqm_preset", P.CQM_JVT),
     "noise reduction": lambda p: setattr(p.analyse, "i_noise_reduction",
@@ -302,7 +301,7 @@ REFUSED = {
     "intra refresh": lambda p: setattr(p, "b_intra_refresh", 1),
     "frame packing 5": lambda p: setattr(p, "i_frame_packing", 5),
 }
-FEATURE = {"aq": "AQ", "vbv": "VBV", "multi-ref": "reference",
+FEATURE = {"multi-ref": "reference",
            "cqm": "CQM", "noise reduction": "noise reduction",
            "slice count": "slice", "slice max mbs": "slice",
            "slice max size": "slice", "intra refresh": "intra refresh",

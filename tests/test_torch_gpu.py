@@ -670,3 +670,54 @@ def test_encoder_card_equals_cpu(cuda, case):
                       forced)
     assert encode_diff(card, cpu) is None, encode_diff(card, cpu)
     assert launches["luma_windows"] > 0 and launches["deblock"] > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cabac", [1, 0])
+def test_encoder_cbr_card_equals_cpu(cuda, cabac):
+    """The live-stream CBR settings (NAL HRD, variance AQ, the lookahead
+    queue of 4) cut to 40 kbit/s with a 6 kbit buffer on the 56x40
+    scene-cut clip, under CABAC and CAVLC (row bits from the device
+    packer): the card's headers, waiting calls, NALs (SEIs and filler
+    included), types, QPs, pic_out planes and summary equal the CPU's;
+    the row-VBV walk re-encodes some frame and the CPB overflows into a
+    filler NAL."""
+    from x264dsp_tpu_torch import params as P
+    from x264dsp_tpu_torch.tools.mainpath import (encode_clip, encode_diff,
+                                                  encoder_cbr_param,
+                                                  scene_cut_clip)
+
+    def make():
+        p = encoder_cbr_param(56, 40, 40)
+        p.rc.i_vbv_buffer_size = 6
+        p.b_cabac = cabac
+        return p
+    frames = scene_cut_clip()
+    xtt.reset_kernel_launches()
+    card = xtt.Encoder(make())
+    run = encode_clip(card, [[torch.as_tensor(a, device=cuda) for a in f]
+                             for f in frames])
+    launches = xtt.kernel_launches()
+    cpu = encode_clip(xtt.Encoder(make(), device="cpu"), frames)
+    assert encode_diff(run, cpu) is None, encode_diff(run, cpu)
+    assert run["waiting"] == [0, 1, 2, 3] and len(run["pics"]) == len(frames)
+    assert any(t == P.NAL_FILLER for nl in run["nals"] for t, _ in nl)
+    assert launches["sad_surface16"] > 0 and launches["deblock"] > 0
+
+
+@pytest.mark.gpu
+def test_aq_log2_card_equals_cpu(cuda):
+    """ratecontrol.log2_f32 (the JAX package's float32 log2) gives the
+    same bits on the card as on the CPU at every integer energy below
+    2**23, and aq_offsets the same offsets on random planes."""
+    from x264dsp_tpu_torch.encoder import ratecontrol as TRC
+    e = torch.arange(1, 1 << 23, dtype=torch.float32)
+    assert torch.equal(TRC.log2_f32(e.to(cuda)).cpu().view(torch.int32),
+                       TRC.log2_f32(e).view(torch.int32))
+    rng = np.random.default_rng(4)
+    planes = [rng.integers(0, 256, shape).astype(np.uint8)
+              for shape in ((64, 80), (32, 40), (32, 40))]
+    want = TRC.aq_offsets(*(torch.from_numpy(a) for a in planes), 1.0, 5, 4)
+    got = TRC.aq_offsets(*(torch.from_numpy(a).to(cuda) for a in planes),
+                         1.0, 5, 4)
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))

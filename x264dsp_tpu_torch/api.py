@@ -112,8 +112,10 @@ class Encoder:
         return self._core.headers()
 
     def encode(self, pic_in: Picture | None):
-        """Returns (nals, pic_out); ([], None) for encode(None), as no
-        frame is delayed."""
+        """Returns (nals, pic_out) of the oldest queued frame: ([], None)
+        while the lookahead queue fills (VBV with i_lookahead > 0 delays
+        that many frames); encode(None) drains the queue one frame per
+        call, then returns ([], None)."""
         return self._core.encode(pic_in)
 
     def close(self) -> dict:

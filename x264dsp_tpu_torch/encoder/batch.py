@@ -145,7 +145,7 @@ class BatchEncoder:
         out = rec["out"]
         S = self.S
         self.clock.start()
-        nbytes, vec, raw = C.pull_payload(
+        nbytes, vec, raw, _ = C.pull_payload(
             out, self._cap, "device CAVLC overflow in BatchEncoder "
             "(pathological content for the payload cap); use Encoder for "
             "this stream")

@@ -12,8 +12,11 @@ it and pulls the payload bytes, never the syntax. The TPU worker-fault
 split of the reference pyramid (core.py:258-265) has no counterpart.
 
 ``EncoderCore`` (core.py:350) is the x264.h API's encoder: one stream
-(S = 1), the scenecut slice-type decision (slicetype.SlicetypeDecider),
-one host RateControl, CAVLC packed on the device or CABAC written by
+(S = 1), the scenecut slice-type decision (slicetype.SlicetypeDecider)
+and the lookahead queue, one host RateControl with variance AQ
+(ratecontrol.aq_offsets, per-MB QP grids through both halves of the
+frame step) and VBV (the row-VBV walk, the VBV re-encode, the HRD SEIs
+and the CBR filler NAL), CAVLC packed on the device or CABAC written by
 the host C++ writer from one pull of the frame's syntax.
 
 The host helpers below are JAX-free copies of their namesakes in
@@ -23,6 +26,7 @@ origin.
 
 from __future__ import annotations
 
+import math
 import time
 from collections import defaultdict
 
@@ -38,8 +42,9 @@ from ..ops import deblock as DB
 from ..ops import mc as MC
 from ..ops.tables import CHROMA_QP_TABLE
 from . import inter_frame, intra_frame
-from .ratecontrol import RateControl
-from .sets import PPS, SPS, sei_pic_timing_rbsp
+from .ratecontrol import RateControl, aq_offsets
+from .sets import (PPS, SPS, filler_rbsp, sei_buffering_period_rbsp,
+                   sei_pic_timing_rbsp)
 from .slicetype import SlicetypeDecider
 
 _I32 = torch.int32
@@ -178,12 +183,16 @@ def frame_cfg(p, mb_w: int, mb_h: int, qp: int, cap_bytes: int,
                 cqpo=p.analyse.i_chroma_qp_offset)
 
 
-def slot_inputs(enc, slice_type: int, qps: list, idr_pic_id: int):
+def slot_inputs(enc, slice_type: int, qps: list, idr_pic_id: int,
+                qp_mb=None):
     """The per-stream inputs of the frame step at the streams' QPs `qps`,
     duck-typed on `enc` (param, sps, pps, frame_num, device, mb_w, mb_h):
     each stream's slice header (BitWriter.get_unaligned), and a dict of
     its packer slots hv / hl (S, n), qp_mb / lam (S, mb_h, mb_w) and the
-    (S,) slice_qp (batch.py:247-265). Returns (headers, inputs)."""
+    (S,) slice_qp (batch.py:247-265). qp_mb: an optional host (S, mb_h,
+    mb_w) grid of per-MB QPs (AQ, row VBV), each stream's QP flat when
+    None; lam is LAMBDA_TAB per MB (core.py:944). Returns (headers,
+    inputs)."""
     headers = []
     for qp in qps:
         bw = BitWriter()
@@ -194,11 +203,13 @@ def slot_inputs(enc, slice_type: int, qps: list, idr_pic_id: int):
     hv, hl = (torch.as_tensor(np.stack([e[i] for e in elems]), device=dev)
               for i in range(2))
     qps_np = np.array(qps, np.int32)
-    ql = torch.as_tensor(np.stack([qps_np, LAMBDA_TAB[qps_np]]), device=dev)
-    grid = (len(qps), enc.mb_h, enc.mb_w)
-    qp_mb, lam = (ql[i][:, None, None].expand(grid).contiguous()
-                  for i in range(2))
-    return headers, dict(hv=hv, hl=hl, qp_mb=qp_mb, lam=lam, slice_qp=ql[0])
+    if qp_mb is None:
+        qp_mb = np.broadcast_to(qps_np[:, None, None],
+                                (len(qps), enc.mb_h, enc.mb_w))
+    qp_mb = np.asarray(qp_mb, np.int32)
+    ql = torch.as_tensor(np.stack([qp_mb, LAMBDA_TAB[qp_mb]]), device=dev)
+    return headers, dict(hv=hv, hl=hl, qp_mb=ql[0], lam=ql[1],
+                         slice_qp=torch.as_tensor(qps_np, device=dev))
 
 
 class StageClock:
@@ -379,19 +390,24 @@ def frame_step(cfg: dict, is_p: bool, fy, fu, fv, refs, qp_mb, lam_mb,
 
 def pull_payload(out, cap: int, overflow_msg: str):
     """pack_cavlc's payloads on the host: one small pull of the streams'
-    bit counts, overflow flags and summed stats vector, the overflow check
-    against the cap (RuntimeError(overflow_msg)), then a power-of-two
-    bucket of payload bytes. Returns (nbytes (S,), vec, raw (S, bucket)
-    uint8)."""
+    bit counts, overflow flags, summed stats vector and end-of-row bit
+    positions, the overflow check against the cap
+    (RuntimeError(overflow_msg)), then a power-of-two bucket of payload
+    bytes. Returns (nbytes (S,), vec, raw (S, bucket) uint8, rows (S,
+    mb_h) int64)."""
     S = out["bits"].shape[0]
+    n_vec = out["stats"].shape[1]
     meta = torch.cat([out["bits"].long(), out["ov"].long(),
-                      out["stats"].sum(0).long()]).cpu().numpy()
-    bits, ov, vec = meta[:S], meta[S:2 * S], meta[2 * S:]
+                      out["stats"].sum(0).long(),
+                      out["rows"].reshape(-1).long()]).cpu().numpy()
+    bits, ov = meta[:S], meta[S:2 * S]
+    vec = meta[2 * S:2 * S + n_vec]
     if ov.any() or (bits > cap * 8).any():
         raise RuntimeError(overflow_msg)
     nbytes = (bits + 7) >> 3
     bucket = min(1 << max(12, int(nbytes.max() - 1).bit_length()), cap)
-    return nbytes, vec, out["payload"][:, :bucket].cpu().numpy()
+    return (nbytes, vec, out["payload"][:, :bucket].cpu().numpy(),
+            meta[2 * S + n_vec:].reshape(S, -1))
 
 
 def pull_syntax(syn, keys, S: int):
@@ -480,10 +496,18 @@ class EncoderCore:
         self._refuse_unported()
         self.device = resolve_device(device)
         self.slicetype = SlicetypeDecider(p)
+        # lookahead queue (core.py:363-371, lookahead.c:59-115): under VBV
+        # a frame waits i_lookahead inputs, so that rate control plans
+        # over the queued frames' types and costs
+        self.la_next: list[dict] = []
+        self.frames_input = 0
+        self.frames_delay = (p.rc.i_lookahead
+                             if p.rc.i_vbv_buffer_size > 0 else 0)
+        self.aq = p.rc.i_aq_mode != P.AQ_NONE and p.rc.f_aq_strength > 0
         self.i_frame = 0          # input frame counter
         self.frame_num = 0        # frame_num syntax element
         self.idr_pic_id = 0
-        self._cpb_delay = 0       # pic-timing SEI ticks
+        self._cpb_delay = 0       # pic-timing SEI ticks since IDR
         profile_name = "Main" if p.b_cabac else "Constrained Baseline"
         P.x264_log(p, P.LOG_INFO,
                    f"profile {profile_name}, level "
@@ -491,6 +515,14 @@ class EncoderCore:
         P.x264_log(p, P.LOG_DEBUG, "options: " + P.param2string(p, True))
         self.stats = Stats()
         self.last_recon = None    # (y, u, v) host uint8, deblocked, padded
+        # the newest frame's per-MB QPs (host int32 (mb_h, mb_w)) and its
+        # per-row bits under VBV, as the JAX core keeps them
+        self._last_qp_mb = None
+        self._row_bits = None
+        # the newest frame's device encodes (1 + row-VBV passes + VBV
+        # re-encodes), per-MB QP range, filler bytes and buffering-period
+        # SEI (delay, offset) or None
+        self.last_frame = None
         # DPB, nearest first (x264_reference_build, encoder.c:813): each
         # frame's reference planes (ref4, refu, refv)
         self.dpb: list = []
@@ -502,9 +534,12 @@ class EncoderCore:
         self.keep_syntax = False
         self.last_slot = None
         # profile: per-frame (slice type, {stage: seconds}) for the stages
-        # slicetype (pad, upload, the decision), encode, then CABAC:
-        # syntax_pull, cabac (the C++ writer); or CAVLC: cavlc (device
-        # packer), pull (payload); and deblock, ref_planes
+        # slicetype (pad, upload, the decision of the frame put in the
+        # same call), aq (the QP grid), encode, then CABAC: syntax_pull,
+        # cabac (the C++ writer); or CAVLC: cavlc (device packer), pull
+        # (payload); deblock, ref_planes; and vbv (the row-VBV walk and
+        # the re-encode decisions). A frame encoded more than once sums
+        # its encodes' stages
         self.frame_times = []
 
     def _refuse_unported(self):
@@ -512,10 +547,6 @@ class EncoderCore:
         each raises ValidationError naming the missing feature."""
         p = self.param
         refused = (
-            (p.rc.i_aq_mode != P.AQ_NONE and p.rc.f_aq_strength > 0,
-             "adaptive quantization (AQ, ratecontrol.aq_offsets)"),
-            (self.rc.b_vbv, "VBV (row VBV, the lookahead queue, HRD SEI "
-             "and filler)"),
             (p.i_frame_reference > 1, "more than one reference frame"),
             (p.i_cqm_preset != P.CQM_FLAT, "non-flat CQM"),
             (p.analyse.i_noise_reduction, "noise reduction"),
@@ -565,34 +596,73 @@ class EncoderCore:
                    nal_unit(P.NAL_SEI, P.NAL_PRIORITY_DISPOSABLE,
                             bw.get_bytes()))
 
+    @staticmethod
+    def _sei(rbsp: bytes) -> NAL:
+        return NAL(P.NAL_SEI, P.NAL_PRIORITY_DISPOSABLE,
+                   nal_unit(P.NAL_SEI, P.NAL_PRIORITY_DISPOSABLE, rbsp))
+
     # ------------------------------------------------------------------
     def encode(self, pic: Picture | None):
         """x264_encoder_encode (core.py:767): the slice-type decision at
-        put time, then the frame's encode. Without VBV the lookahead
-        delays no frame (frames_delay 0), so a picture comes back encoded
-        at once and encode(None) returns ([], None). A torch picture is
-        padded on its device; anything else through pad_mod16."""
-        if pic is None:
-            return [], None
+        put time into the lookahead queue, then the oldest queued frame's
+        encode. Under VBV with i_lookahead > 0 the queue holds that many
+        frames, so the first calls return ([], None) (encoder.c:1775-1781)
+        and encode(None) returns one queued frame per call until the queue
+        is empty, then ([], None). A torch picture is padded on its device
+        and stays there while it waits; anything else through pad_mod16."""
         self.clock.start()
-        planes = []
-        for a, mb in ((pic.y, 16), (pic.u, 8), (pic.v, 8)):
-            if torch.is_tensor(a):
-                t = pad_mod16_tensor(a.to(self.device, torch.uint8), mb)
-            else:
-                t = torch.from_numpy(np.ascontiguousarray(
-                    pad_mod16(np.asarray(a, np.uint8), mb))).to(self.device)
-            planes.append(t)
-        slice_type, is_keyframe, frame_cost = self.slicetype.decide(planes[0])
-        self.clock.mark("slicetype")
-        return self._encode_frame(pic, planes, slice_type, is_keyframe,
-                                  frame_cost, self.slicetype.frame_idx - 1)
+        if pic is not None:
+            planes = []
+            for a, mb in ((pic.y, 16), (pic.u, 8), (pic.v, 8)):
+                if torch.is_tensor(a):
+                    t = pad_mod16_tensor(a.to(self.device, torch.uint8), mb)
+                else:
+                    t = torch.from_numpy(np.ascontiguousarray(
+                        pad_mod16(np.asarray(a, np.uint8), mb))).to(
+                            self.device)
+                planes.append(t)
+            slice_type, is_keyframe, frame_cost = self.slicetype.decide(
+                planes[0])
+            # put-time snapshots: the decider has moved past this frame by
+            # the time it is popped
+            self.la_next.append(dict(
+                pic=pic, planes=planes, slice_type=slice_type,
+                is_keyframe=is_keyframe, frame_cost=frame_cost,
+                row_costs=self.slicetype.row_costs,
+                st_idx=self.slicetype.frame_idx - 1))
+            self.clock.mark("slicetype")
+            self.frames_input += 1
+            if self.frames_input <= self.frames_delay:
+                return [], None
+        if not self.la_next:
+            return [], None
+        rec = self.la_next.pop(0)
+        planned = [(r["slice_type"], r["frame_cost"]) for r in self.la_next]
+        return self._encode_frame(rec, planned)
 
-    def _encode_frame(self, pic, planes, slice_type, is_keyframe,
-                      frame_cost, st_idx):
-        """core.py:816-1373 for one slice, one reference, no AQ or VBV."""
+    def _qp_grid(self, planes, qp: int) -> np.ndarray:
+        """The frame's per-MB QPs (host int32 (mb_h, mb_w)): variance AQ
+        on the padded planes on their device, floor(qp + offset + 0.5) in
+        float32 and clipped as core.py:864-872 does; else qp flat."""
+        p = self.param
+        if not self.aq:
+            return np.full((self.mb_h, self.mb_w), qp, np.int32)
+        off = aq_offsets(*planes, p.rc.f_aq_strength, self.mb_w, self.mb_h)
+        return torch.floor(qp + off + 0.5).clamp(
+            p.rc.i_qp_min, min(p.rc.i_qp_max, P.QP_MAX_SPEC)).to(
+                _I32).cpu().numpy()
+
+    def _encode_frame(self, rec: dict, planned: list):
+        """core.py:816-1373 for one slice and one reference, in the JAX CPU
+        path's order (its multi-dispatch flow, core.py:1100-1320): the
+        SEIs, the first write, up to 3 row-VBV passes, up to 8 VBV
+        re-encodes while the frame exceeds rc.frame_size_limit(), the
+        row predictors' update from the final encode, rc.end over every
+        NAL and the CBR filler NAL."""
         p = self.param
         clock = self.clock
+        pic, planes, st_idx = rec["pic"], rec["planes"], rec["st_idx"]
+        slice_type, is_keyframe = rec["slice_type"], rec["is_keyframe"]
         is_idr = is_keyframe
         if not is_keyframe and (pic.i_type == P.TYPE_IDR or pic.b_keyframe
                                 or not self.dpb):
@@ -610,56 +680,120 @@ class EncoderCore:
                 self.slicetype.last_keyframe = st_idx
             else:
                 slice_type = P.SLICE_TYPE_I
-        qp = self.rc.start(slice_type, frame_cost, planned=[])
+        qp = self.rc.start(slice_type, rec["frame_cost"], planned=planned)
         if pic.i_qpplus1:
             qp = pic.i_qpplus1 - 1  # i_force_qp (ratecontrol.c:579-580)
         qp = min(int(np.clip(qp, p.rc.i_qp_min, p.rc.i_qp_max)),
                  P.QP_MAX_SPEC)
+        qp_mb = self._qp_grid(planes, qp)
+        clock.mark("aq")
         is_p = slice_type == P.SLICE_TYPE_P
         # IDR resets frame_num before the slice header is written
         if is_idr:
             self.frame_num = 0
         idr_id = self.idr_pic_id if is_idr else -1
-        headers, x = slot_inputs(self, slice_type, [qp], idr_id)
         cfg = frame_cfg(p, self.mb_w, self.mb_h, qp, self._cap)
         refs = self.dpb[0] if is_p else None
-        syn = encode_frame(cfg, is_p, *(a[None] for a in planes), refs,
-                           x["qp_mb"], x["lam"], clock)
-        if p.b_cabac:
-            # the frame's syntax crosses once; the device filters the
-            # reference while the host writes the slice, and the stats
-            # vector is pulled after the writer
-            host = pull_syntax(syn, SYN_CABAC_P if is_p else SYN_CABAC_I,
-                               1)[0]
-            clock.mark("syntax_pull")
-            stats = frame_stats(syn, is_p, torch.zeros(
-                1, dtype=_I32, device=self.device))
-            ref_planes, recon = reference(cfg, is_p, syn, x["qp_mb"],
-                                          x["slice_qp"], clock)
-            payload, counts = self._write_slice_cabac(host, slice_type, qp,
-                                                      idr_id)
-            clock.mark("cabac")
-            vec = stats[0].cpu().numpy()
-        else:
-            payload, vec, counts = self._pack_cavlc(cfg, slice_type, qp, syn,
-                                                    x, headers)
-            ref_planes, recon = reference(cfg, is_p, syn, x["qp_mb"],
-                                          x["slice_qp"], clock)
+        n_skip = 0      # P_SKIP MBs counted by every write of the frame
 
-        nals = []
+        def attempt(qp_mb):
+            """One device encode of the frame at the grid qp_mb and its
+            slice payload. A CABAC frame launches its reference half
+            before the host writer runs, so the card filters while the
+            host writes (a re-encode drops it and launches its own); a
+            CAVLC frame's comes from the final encode. The MB-type counts
+            are added at every write, as the JAX host writers do."""
+            nonlocal n_skip
+            headers, x = slot_inputs(self, slice_type, [qp], idr_id,
+                                     qp_mb[None])
+            syn = encode_frame(cfg, is_p, *(a[None] for a in planes), refs,
+                               x["qp_mb"], x["lam"], clock)
+            res = dict(syn=syn, x=x)
+            if p.b_cabac:
+                host = pull_syntax(syn, SYN_CABAC_P if is_p else SYN_CABAC_I,
+                                   1)[0]
+                clock.mark("syntax_pull")
+                res["stats"] = frame_stats(syn, is_p, torch.zeros(
+                    1, dtype=_I32, device=self.device))
+                res["ref"] = reference(cfg, is_p, syn, x["qp_mb"],
+                                       x["slice_qp"], clock)
+                res["payload"], counts, res["row_bits"] = \
+                    self._write_slice_cabac(host, slice_type, qp, idr_id,
+                                            qp_mb)
+                clock.mark("cabac")
+                n_skip += self._count_mb_types(slice_type, counts=counts)
+            else:
+                res["payload"], res["vec"], res["row_bits"] = \
+                    self._pack_cavlc(cfg, slice_type, qp, syn, x, headers)
+                n_skip += self._count_mb_types(slice_type, vec=res["vec"])
+            return res
+
+        nals, bp = [], None
         if p.b_repeat_headers and self.i_frame == 0:
             # in-band SPS/PPS on the first frame only (encoder.c:1916-1944)
             nals.extend(self.headers()[:2])
-        if self.sps.vui_pic_struct_present:
+        if self.sps.vui_nal_hrd_present and is_idr:
+            # buffering-period SEI on every IDR (set.c:577-597), from the
+            # CPB fill before this frame
+            bp = self.rc.hrd_fullness(self.sps)
+            nals.append(self._sei(sei_buffering_period_rbsp(self.sps, *bp)))
+            if not p.b_intra_refresh:
+                self._cpb_delay = 0
+        if self.sps.vui_nal_hrd_present or self.sps.vui_pic_struct_present:
             # pic-timing SEI per frame (set.c:599-630)
-            nals.append(NAL(P.NAL_SEI, P.NAL_PRIORITY_DISPOSABLE,
-                            nal_unit(P.NAL_SEI, P.NAL_PRIORITY_DISPOSABLE,
-                                     sei_pic_timing_rbsp(
-                                         self.sps, self._cpb_delay, 0))))
+            nals.append(self._sei(sei_pic_timing_rbsp(self.sps,
+                                                      self._cpb_delay, 0)))
             self._cpb_delay += 2
+
+        res = attempt(qp_mb)
+        n_row, n_frame = 0, 0
+        if self.rc.b_vbv:
+            qp_hi = min(p.rc.i_qp_max, P.QP_MAX_SPEC)
+            # per-row VBV (x264_ratecontrol_mb, ratecontrol.c:599-780): the
+            # end-of-row QP-step walk over the measured row bits, a
+            # re-encode with the new ramp, to a fixed point (core.py
+            # :1217-1234)
+            row_satd = rec["row_costs"]
+            ramp = np.full(self.mb_h, qp, np.int32)
+            for _ in range(3):
+                new_ramp = self.rc.row_vbv_adjust(slice_type, ramp,
+                                                  res["row_bits"], row_satd)
+                clock.mark("vbv")
+                if new_ramp is None:
+                    break
+                qp_mb = np.clip(qp_mb + (new_ramp - ramp)[:, None],
+                                p.rc.i_qp_min, qp_hi).astype(np.int32)
+                ramp = new_ramp
+                res = attempt(qp_mb)
+                n_row += 1
+            # recovery path (b): a frame past the MinCR / VBV ceiling is
+            # encoded again at a QP raised by the overshoot (core.py
+            # :1270-1286)
+            for _ in range(8):
+                bits = len(res["payload"]) * 8
+                limit = self.rc.frame_size_limit()
+                clock.mark("vbv")
+                if bits <= limit or qp_mb.min() >= P.QP_MAX_SPEC:
+                    break
+                step = max(1, int(round(6 * math.log2(bits / limit))))
+                qp_mb = np.minimum(qp_mb + step, P.QP_MAX_SPEC)
+                res = attempt(qp_mb)
+                n_frame += 1
+            # the row predictors learn from the final encode (:675-681)
+            self.rc.row_vbv_commit(slice_type, qp_mb.mean(axis=1),
+                                   res["row_bits"], row_satd)
+            self._row_bits = res["row_bits"]
+            clock.mark("vbv")
+        self._last_qp_mb = qp_mb
+        ref_planes, recon = res.get("ref") or reference(
+            cfg, is_p, res["syn"], res["x"]["qp_mb"], res["x"]["slice_qp"],
+            clock)
+        vec = res["vec"] if "vec" in res else res["stats"][0].cpu().numpy()
+
         nal_type = P.NAL_SLICE_IDR if is_idr else P.NAL_SLICE
         nals.append(NAL(nal_type, P.NAL_PRIORITY_HIGHEST,
-                        nal_unit(nal_type, P.NAL_PRIORITY_HIGHEST, payload)))
+                        nal_unit(nal_type, P.NAL_PRIORITY_HIGHEST,
+                                 res["payload"])))
 
         if is_idr:
             self.idr_pic_id = (self.idr_pic_id + 1) % 65536
@@ -667,7 +801,11 @@ class EncoderCore:
             1 << self.sps.i_log2_max_frame_num)
         self.i_frame += 1
         self.last_recon = self._update_reference(ref_planes, recon, is_idr)
-        self._add_stats(pic, slice_type, qp, nals, vec, counts)
+        filler = self._add_stats(pic, slice_type, qp_mb, nals, vec, n_skip)
+        self.last_frame = dict(encodes=1 + n_row + n_frame, row_vbv=n_row,
+                               reencodes=n_frame, qp_min=int(qp_mb.min()),
+                               qp_max=int(qp_mb.max()), filler=filler,
+                               bp=bp)
         if clock.enabled:
             self.frame_times.append((slice_type, dict(clock.times)))
             clock.times.clear()
@@ -686,31 +824,38 @@ class EncoderCore:
     def _pack_cavlc(self, cfg, slice_type, qp, syn, x, headers):
         """The device CAVLC payload of the frame, packed and pulled as the
         BatchEncoder does (its bytes equal the host C++ writers'). Returns
-        (payload, stats vector, None)."""
+        (payload, stats vector, the bits of each MB row, the first without
+        the slice header: core.py:1715-1720)."""
         out = pack_cavlc(cfg, slice_type == P.SLICE_TYPE_P, syn, x["qp_mb"],
                          x["slice_qp"], x["hv"], x["hl"])
         if self.keep_syntax:
             self.last_slot = dict(out, syn=syn, slice_type=slice_type,
                                   qps=[qp], headers=headers)
         self.clock.mark("cavlc")
-        nbytes, vec, raw = pull_payload(
+        nbytes, vec, raw, rows = pull_payload(
             out, self._cap, "device CAVLC overflow (pathological content "
             "for the payload cap); the re-encode at a raised QP is not "
             "ported")
         self.clock.mark("pull")
-        return raw[0, :nbytes[0]].tobytes(), vec, None
+        hb, hn = headers[0]
+        row_bits = np.diff(rows[0], prepend=(len(hb) - 1) * 8 + hn)
+        return raw[0, :nbytes[0]].tobytes(), vec, row_bits
 
-    def _write_slice_cabac(self, syn, slice_type, qp, idr_pic_id):
+    def _write_slice_cabac(self, syn, slice_type, qp, idr_pic_id, qp_mb):
         """core.py:1904-1941 on the native writer: the slice header, the
         cabac_alignment_one_bits, then the C++ CABAC body with frame_idx
-        the input frame counter. Returns (payload, MB-type counts)."""
+        the input frame counter, at the per-MB QPs qp_mb (host (mb_h,
+        mb_w)). Returns (payload, MB-type counts, the
+        bits of each MB row: x264_cabac_pos starts at 1 bit, so the first
+        row's count holds the slice's opening bit, core.py:1926-1928)."""
         bw = BitWriter()
         write_slice_header_common(self, bw, slice_type, qp, idr_pic_id)
         bw.align_1()
-        qp_mb = np.full((self.mb_h, self.mb_w), qp, np.int16)
-        return native.write_slice_cabac(
+        rb = np.zeros(self.mb_h, np.int64)
+        payload, counts = native.write_slice_cabac(
             bw.get_bytes(), self.mb_w, self.mb_h, qp, self.i_frame,
-            slice_type == P.SLICE_TYPE_P, syn, qp_mb=qp_mb)
+            slice_type == P.SLICE_TYPE_P, syn, qp_mb=qp_mb, row_bits=rb)
+        return payload, counts, np.diff(rb, prepend=1)
 
     def _update_reference(self, planes, recon, is_idr):
         """Commit the frame's reference planes to the DPB (core.py:730-766;
@@ -728,28 +873,20 @@ class EncoderCore:
             off += n
         return tuple(out)
 
-    def _add_stats(self, pic, slice_type, qp, nals, vec, counts):
-        """The h->stat update of core.py:1302-1359: frame count, size and
-        QP, rate control's end on every NAL of the frame, the MB-type
-        histogram (from the CABAC writer's counts, or the device stats
-        vector), PSNR on the cropped planes, the reference and intra-mode
-        histograms, SSIM offset by (2, 2)."""
-        p = self.param
-        st = self.stats
-        n_mbs = self.mb_w * self.mb_h
-        st.i_frame_count[slice_type] += 1
-        total = sum(len(n.payload) for n in nals)
-        st.i_frame_size[slice_type] += total
-        self.rc.end(slice_type, total * 8)
-        st.f_frame_qp[slice_type] += float(qp)
-        mbc = st.i_mb_count
+    def _count_mb_types(self, slice_type, counts=None, vec=None) -> int:
+        """The MB-type histogram update of one slice write (core.py
+        :1672-1694, 1721-1726, 1929-1933, 2268-2277): from the CABAC
+        writer's counts, or a CAVLC frame's device stats vector. A frame
+        written more than once (VBV) counts every write, as the JAX
+        Encoder does. Returns the write's P_SKIP MBs."""
+        mbc = self.stats.i_mb_count
         if counts is not None:
             for name, n in zip(("I_16x16", "I_4x4", "P_L0", "P_SKIP",
                                 "P_16x8", "P_8x16", "P_8x8"), counts):
                 if n:
                     mbc[name] = mbc.get(name, 0) + int(n)
-            n_skip = int(counts[3])
-        elif slice_type == P.SLICE_TYPE_P:
+            return int(counts[3])
+        if slice_type == P.SLICE_TYPE_P:
             n_skip = int(vec[0])
             mbc["P_SKIP"] = mbc.get("P_SKIP", 0) + n_skip
             part = vec[1:5].copy()
@@ -757,10 +894,34 @@ class EncoderCore:
             for name, n in zip(("P_L0", "P_16x8", "P_8x16", "P_8x8"), part):
                 if n:
                     mbc[name] = mbc.get(name, 0) + int(n)
-        else:
-            n_i4 = int(vec[0])
-            mbc["I_4x4"] = mbc.get("I_4x4", 0) + n_i4
-            mbc["I_16x16"] = mbc.get("I_16x16", 0) + n_mbs - n_i4
+            return n_skip
+        n_i4 = int(vec[0])
+        mbc["I_4x4"] = mbc.get("I_4x4", 0) + n_i4
+        mbc["I_16x16"] = mbc.get("I_16x16", 0) + self.mb_w * self.mb_h - n_i4
+        return 0
+
+    def _add_stats(self, pic, slice_type, qp_mb, nals, vec, n_skip) -> int:
+        """The h->stat update of core.py:1306-1360: frame count and size,
+        rate control's end on every NAL of the frame, the CBR filler NAL
+        it asks for (appended to nals and to the frame's size), the mean
+        per-MB QP, PSNR on the cropped planes, the reference histogram
+        (less the frame's n_skip P_SKIP MBs over all its writes) and the
+        intra-mode histograms from the final encode's stats vector, SSIM
+        offset by (2, 2). Returns the filler payload bytes."""
+        p = self.param
+        st = self.stats
+        n_mbs = self.mb_w * self.mb_h
+        st.i_frame_count[slice_type] += 1
+        total = sum(len(n.payload) for n in nals)
+        st.i_frame_size[slice_type] += total
+        filler = self.rc.end(slice_type, total * 8)
+        if filler > 0:
+            # CBR-HRD filler NAL (update_vbv :945-952, x264_filler_write)
+            nals.append(NAL(P.NAL_FILLER, P.NAL_PRIORITY_DISPOSABLE,
+                            nal_unit(P.NAL_FILLER, P.NAL_PRIORITY_DISPOSABLE,
+                                     filler_rbsp(filler))))
+            st.i_frame_size[slice_type] += len(nals[-1].payload)
+        st.f_frame_qp[slice_type] += float(qp_mb.mean())
         h, w = pic.y.shape
         src = None
         if p.analyse.b_psnr or p.analyse.b_ssim:
@@ -794,6 +955,7 @@ class EncoderCore:
                               torch.from_numpy(src[0][2:, 2:]))
             st.f_ssim += float(s)
             st.i_ssim_cnt += cnt
+        return max(filler, 0)
 
     # ------------------------------------------------------------------
     def close(self) -> dict:

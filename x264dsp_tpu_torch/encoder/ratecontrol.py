@@ -27,8 +27,9 @@ Implements the reference's CQP / CRF / ABR math exactly:
 
 Copied from x264dsp_tpu/encoder/ratecontrol.py
 so that the port imports nothing of the JAX package; only the import
-lines differ. The device function aq_offsets (JAX) is left out: it is
-ported with AQ.
+lines differ, and the device function aq_offsets (ratecontrol.py:619-645)
+is ported to PyTorch below, with the reference's float32 log2
+(log2_f32) so that the per-MB QPs come out the same.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ from __future__ import annotations
 import math
 
 import numpy as np
+import torch
 
 from .. import params as P
 
@@ -619,3 +621,74 @@ class RateControl:
         delay = int(round(90000.0 * fill / bitrate))
         offset = int(round(90000.0 * (cpb_size - fill) / bitrate))
         return delay, offset
+
+
+# float32 constants of log2_f32: the Cephes log polynomial (p0..p8), the
+# split ln 2 (q1 + q2) and 1 / ln 2
+_LOG_P = tuple(float(np.float32(v)) for v in (
+    7.0376836292E-2, -1.1514610310E-1, 1.1676998740E-1, -1.2420140846E-1,
+    1.4249322787E-1, -1.6668057665E-1, 2.0000714765E-1, -2.4999993993E-1,
+    3.3333331174E-1))
+_LOG_Q1 = float(np.float32(-2.12194440e-4))
+_LOG_Q2 = float(np.float32(0.693359375))
+_SQRTHF = float(np.float32(0.707106781186547524))
+_LOG2E = float(np.float32(1.44269502))
+
+
+def _fma(a, b, c):
+    """a * b + c rounded once to float32 (a, b float32; a product of two
+    float32 values is exact in float64). Checked against the fused
+    multiply-add over every input log2_f32 can get from aq_offsets."""
+    return (a.double() * b + c).float()
+
+
+def log2_f32(x):
+    """log2 of a positive float32 tensor as the JAX package computes it on
+    the CPU, bit for bit: jnp.log2 is log(x) * float32(1 / ln 2), and
+    XLA's CPU log is Cephes' polynomial over the mantissa in
+    [sqrt(1/2), sqrt(2)) with fused multiply-adds. torch.log2 differs from
+    it by one ulp on about a fifth of the integers below 2**23, enough to
+    move a variance-AQ QP across a rounding edge. Plain float32 / float64
+    operations, so the CPU and the card give the same bits."""
+    bits = x.view(torch.int32)
+    e = ((bits >> 23) - 0x7f).float() + 1.0
+    m = ((bits & ~0x7f800000) | 0x3f000000).view(torch.float32)
+    low = m < _SQRTHF
+    m = (m - 1.0) + torch.where(low, m, 0.0)
+    e = e - low.float()
+    x2 = m * m
+    x3 = x2 * m
+    p = _LOG_P
+    y = _fma(_fma(m, p[0], p[1]), m, p[2])
+    y1 = _fma(_fma(m, p[3], p[4]), m, p[5])
+    y2 = _fma(_fma(m, p[6], p[7]), m, p[8])
+    y = _fma(_fma(y, x3, y1), x3, y2)
+    y = _fma(y, x3, e * _LOG_Q1)
+    m = _fma(x2, -0.5, m) + y
+    return _fma(e, _LOG_Q2, m) * _LOG2E
+
+
+def aq_offsets(fenc_y, fenc_u, fenc_v, strength: float, mb_w: int,
+               mb_h: int):
+    """Variance-AQ per-MB QP offsets — port of ratecontrol.py:619-645
+    aq_offsets (x264_adaptive_quant_frame, ratecontrol.c:192-300), plain
+    PyTorch on the planes' device: energy = AC energy of the 16x16 luma
+    block (shift 8) + both 8x8 chroma blocks (shift 6), exact in int64;
+    offset = strength·1.0397·(log2(max(energy, 1)) − 14.427) in float32,
+    the reference's dtype at every step (its Python scalars are weak), with
+    the reference's log2 (log2_f32). fenc_*: the padded (H, W) planes.
+    Returns (mb_h, mb_w) float32."""
+    def energy(plane, size, shift):
+        blk = plane.to(torch.int64).reshape(mb_h, size, mb_w, size)
+        s = blk.sum((1, 3))
+        return (blk * blk).sum((1, 3)) - ((s * s) >> shift)
+
+    return energy_offsets((energy(fenc_y, 16, 8) + energy(fenc_u, 8, 6)
+                           + energy(fenc_v, 8, 6)).clamp(min=1), strength)
+
+
+def energy_offsets(energy, strength: float):
+    """aq_offsets' QP offsets of integer AC energies (>= 1):
+    strength·1.0397·(log2(energy) − 14.427), float32 at every step."""
+    return (log2_f32(energy.to(torch.float32)) - float(np.float32(14.427))) \
+        * float(np.float32(strength * 1.0397))

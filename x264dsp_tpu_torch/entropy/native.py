@@ -10,8 +10,7 @@ from x264dsp_tpu/entropy/native/entropy.cpp), with three differences:
 - a failed build raises: there is no Python-writer fallback;
 - ``write_slice_cabac`` takes no device-binarized residual stream (the
   JAX package's ``res_ops`` front half, entropy/cabac_device.py, is not
-  ported: the C++ writer binarizes every block itself) and returns no
-  per-row bits (row VBV is not ported).
+  ported: the C++ writer binarizes every block itself).
 """
 
 from __future__ import annotations
@@ -206,11 +205,14 @@ def write_slice_p(header_bits: tuple, mb_w: int, mb_h: int, qp: int,
 
 def write_slice_cabac(header: bytes, mb_w: int, mb_h: int, qp: int,
                       frame_idx: int, is_p: bool, syn: dict, qp_mb=None,
-                      n_ref: int = 1):
+                      n_ref: int = 1, row_bits=None):
     """C++ CABAC slice body. header must be byte-aligned (the
     cabac_alignment_one_bit already written). Returns (payload, counts)
     with counts the MBs coded as [I_16x16, I_4x4, P_L0, P_SKIP, P_16x8,
-    P_8x16, P_8x8]."""
+    P_8x16, P_8x8]. row_bits: as in write_slice_i / _p, an optional
+    np.int64 (mb_h,) out-array of cumulative end-of-row bit positions
+    (x264dsp_tpu/entropy/native.py:140-146; x264_cabac_pos, so a slice
+    starts at 1 bit)."""
     lib = get_lib()
     cap = mb_w * mb_h * 1024 + len(header) + 4096
     out = _out_buf(cap)
@@ -248,7 +250,7 @@ def write_slice_cabac(header: bytes, mb_w: int, mb_h: int, qp: int,
     args.append(_qp_arg(keep, syn.get("mv8") if is_p else None))
     args.append(_qp_arg(keep, syn.get("ref") if is_p else None))
     args.append(ctypes.c_int(n_ref))
-    args.append(ctypes.c_void_p(0))         # row_bits: no row VBV
+    args.append(_row_bits_arg(row_bits))
     args.append(ctypes.c_void_p(0))         # res_ops: not ported
     args.append(ctypes.c_void_p(0))         # res_off
     n = lib.x264tpu_write_slice_cabac(*args)

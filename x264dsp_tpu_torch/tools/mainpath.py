@@ -17,7 +17,9 @@
 - encoder: the single-stream Encoder at param_default() (CRF 28, CABAC,
   scenecut, keyint 50), and the small clip with a scene cut and the CQP
   + CABAC settings with forced frame types and QPs that hold it to the
-  JAX Encoder (tests/test_torch_encoder.py) and the card to the CPU.
+  JAX Encoder (tests/test_torch_encoder.py) and the card to the CPU;
+- encoder-cbr: the Encoder as a live stream's CBR (encoder_cbr_param:
+  6000 kbit/s, NAL HRD, variance AQ, the lookahead queue).
 
 The parameter helpers set their fields on ``p`` when given (any Param
 with the package's fields: the tests pass the JAX package's so that both
@@ -127,6 +129,27 @@ def encoder_cqp_param(w: int, h: int, p=None):
     return p
 
 
+def encoder_cbr_param(w: int, h: int, kbit: int = 6000, p=None):
+    """A live stream into an ingest server: 30 fps, CBR at `kbit` kbit/s
+    with a 2 s keyframe interval (keyint 60; Twitch's Broadcasting
+    Guidelines ask for 6000 kbit/s), i.e. ABR with VBV max rate = buffer
+    = `kbit` and the NAL HRD in CBR mode (x264 --nal-hrd cbr, which
+    needs --vbv-maxrate and --vbv-bufsize), and x264's default variance
+    AQ (--aq-mode 1, strength 1.0); i_lookahead 4 (x264's default is 40,
+    cut for the smoke run's time); the rest param_default()."""
+    from .. import params as P
+    p = encoder_param(w, h, p)
+    p.i_fps_num, p.i_fps_den = 30, 1
+    p.i_keyint_max = 60
+    p.rc.i_rc_method = P.RC_ABR
+    p.rc.i_bitrate = p.rc.i_vbv_max_bitrate = p.rc.i_vbv_buffer_size = kbit
+    p.i_nal_hrd = P.NAL_HRD_CBR
+    p.rc.i_aq_mode = P.AQ_VARIANCE
+    p.rc.f_aq_strength = 1.0
+    p.rc.i_lookahead = 4
+    return p
+
+
 # encoder_cqp_param's Picture fields per frame: a forced IDR, a forced I
 # inside keyint_min (a non-IDR I) and a P frame forced to QP 18 (the
 # filter off)
@@ -157,31 +180,44 @@ def scene_cut_clip(w: int = 56, h: int = 40, n: int = 8, cut: int = 6):
 def encode_clip(enc, frames, forced=None, picture=None):
     """Encode (y, u, v) frames (numpy or tensors) with an Encoder, each
     Picture (`picture`, the port's by default) with the fields of
-    forced[t]. Returns the headers and each frame's NALs as (type,
-    bytes), the pic_outs, what encode(None) returns after the last frame
-    (tail) and the close() summary."""
+    forced[t], then drain it with encode(None) until that returns
+    ([], None). Returns the headers; each encoded frame's NALs as (type,
+    bytes) and its pic_out, in output order (the drained frames last);
+    the calls with a picture that returned nothing (waiting, the
+    lookahead queue filling); what the last encode(None) returned (tail)
+    and the close() summary."""
     if picture is None:
         from ..api import Picture as picture
     headers = [(n.i_type, n.payload) for n in enc.headers()]
-    nals, pics = [], []
+    nals, pics, waiting = [], [], []
+
+    def keep(out, po):
+        if po is None:
+            return False
+        nals.append([(n.i_type, n.payload) for n in out])
+        pics.append(po)
+        return True
     for t, planes in enumerate(frames):
         pic = picture.from_planes(*planes, pts=t)
         for k, v in (forced or {}).get(t, {}).items():
             setattr(pic, k, v)
-        out, po = enc.encode(pic)
-        nals.append([(n.i_type, n.payload) for n in out])
-        pics.append(po)
+        if not keep(*enc.encode(pic)):
+            waiting.append(t)
     tail = enc.encode(None)
-    return dict(headers=headers, nals=nals, pics=pics, tail=tail,
-                summary=enc.close())
+    while keep(*tail):
+        tail = enc.encode(None)
+    return dict(headers=headers, nals=nals, pics=pics, waiting=waiting,
+                tail=tail, summary=enc.close())
 
 
 def encode_diff(a: dict, b: dict):
     """The first difference between two encode_clip results (headers,
-    NALs, pic_out types, QPs and planes, close() summary) as text, or
-    None when they are equal."""
+    the calls that returned no frame, NALs, pic_out types, QPs and planes,
+    close() summary) as text, or None when they are equal."""
     if a["headers"] != b["headers"]:
         return "headers"
+    if a["waiting"] != b["waiting"]:
+        return "the calls that returned no frame"
     for t, (na, nb) in enumerate(zip(a["nals"], b["nals"])):
         if na != nb:
             return f"NALs of frame {t}"
@@ -357,9 +393,10 @@ def cabac_twin(param, run, frames, n: int):
         # an IDR resets frame_num before its slice header is written
         writer.frame_num = 0 if is_idr else fields[0]
         writer.i_frame = fields[1]
-        payload, _ = writer._write_slice_cabac(
+        payload, _, _ = writer._write_slice_cabac(
             host, slot["slice_type"], po.i_frame_qp,
-            fields[2] if is_idr else -1)
+            fields[2] if is_idr else -1,
+            np.full((writer.mb_h, writer.mb_w), po.i_frame_qp, np.int32))
         nal_type = P.NAL_SLICE_IDR if is_idr else P.NAL_SLICE
         slices = [b for ty, b in run["nals"][t]
                   if ty in (P.NAL_SLICE, P.NAL_SLICE_IDR)]
