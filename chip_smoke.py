@@ -34,8 +34,16 @@ Phases (any failure exits non-zero):
      lookahead queue of 4 frames) cut to 40 kbit/s with a 6 kbit buffer,
      so that the row-VBV walk re-encodes and the CPB overflows into filler
      NALs, under CABAC and under CAVLC (whose row bits come from the
-     device packer): identical headers, calls that return no frame, NALs,
-     frame types, QPs, pic_out planes and close() summary;
+     device packer), and on tools/mainpath.py's 56x40 multi-ref clip at
+     3 references with the JVT scaling lists and noise reduction 100,
+     its newest reference marked corrupt before frame 5 and every one
+     before its extreme last frame 6 (an IDR that no valid reference
+     forces) at QP 0, under CAVLC (the overflow re-encode must fire) and
+     CABAC: identical
+     headers, calls that return no frame, NALs, frame types, QPs, pic_out
+     planes and close() summary; and the CLI on the scene-cut clip as a
+     56x40 .yuv (under build/smoke/) with --device cuda against --device
+     cpu: identical .264 bytes;
   4. the main path: BatchEncoder at 1920x1088, S = 8, QP 26, keyint 50,
      CAVLC, DIA, subme 1, one I slot and four P slots of a synthetic clip;
      prints fps and the per-stage split, and holds the device payload of
@@ -79,7 +87,17 @@ Phases (any failure exits non-zero):
      same bytes (the stage split, with aq and vbv). Requires K1, K2a, K2b
      and K3 launches, an AQ spread on some frame, a filler NAL and a luma
      PSNR of 30 dB or more.
-Phases 4 to 9 each set the launch counters to 0 just before they drive
+ 10. encoder-refs: the Encoder at 1920x1080 with x264 --preset medium's
+     three references, the JVT scaling lists, noise reduction 100 and
+     CAVLC, one I and four P frames of phase 4's clip cut to 1080 rows,
+     the newest reference marked corrupt before the last frame,
+     unprofiled: the fps, each frame's type, QP, bytes, active
+     reference count and wall time, the reference histogram. Requires
+     K1 (the first P frame has one reference), K4 (the others two or
+     three, on the stream axis), K2a, K2b and K3 launches, the reordered
+     last frame and a luma PSNR of 30 dB or more; phase 2 holds K4 at
+     its shape.
+Phases 4 to 10 each set the launch counters to 0 just before they drive
 the encoder and read them just after; a kernel of the path that was
 never launched fails the run. The line before the last is the kernels'
 JSON record; the last line is {"ok": true, "device": {...}}. Imports
@@ -211,7 +229,8 @@ def kernel_checks():
     def cases_at(S: int, rng):
         """The cases at S streams: every kernel at S = S_MAIN; at S = 1
         the four of phase 8's path (K1, K2a, K2b, K3), tagged "S=1" in
-        their names. Returns (cases, K3's P-like and I-like arguments)."""
+        their names, and K4 at phase 10's shape (one frame beside three
+        references). Returns (cases, K3's P-like and I-like arguments)."""
         full = S == S_MAIN
         tag1 = "" if full else "S=1"
 
@@ -280,6 +299,26 @@ def kernel_checks():
                                                            mb_w, mb_h, R),
                 None, 10, 1, (sad_in + 16 * S * mb_h * mb_w * n * n,
                               sad_sums)))
+        else:
+            # K4 at phase 10's shape: the Encoder's frame beside its three
+            # references on the stream axis (one launch per P frame)
+            nr = 3
+            fenc_r = fenc.expand(nr, H, W).contiguous()
+            strips_r = me_sad.make_ref_strips(
+                MC.make_ref_planes(t(rng.integers(0, 256, (nr, H, W)),
+                                     torch.uint8))[:, 0].contiguous(),
+                MC.PAD_MC, mb_w, mb_h, R)
+            cases.insert(1, (
+                f"sad_surfaces_8x8[S=1,{nr} refs]",
+                "x264dsp_tpu_torch/csrc/me_sad.cu",
+                "x264dsp_tpu/ops/pallas/me_sad.py:72",
+                lambda: me_sad.sad_cost_surfaces_8x8_cuda(fenc_r, strips_r,
+                                                          mb_w, mb_h, R),
+                lambda: me_sad.sad_cost_surfaces_8x8_plain(fenc_r, strips_r,
+                                                           mb_w, mb_h, R),
+                None, 10, 1, (nbytes(fenc_r, strips_r)
+                              + 16 * nr * mb_h * mb_w * n * n,
+                              nr * sad_sums)))
         # K3: a P-like case (no intra MBs, random bS 0..2, skips) and an
         # I-like case (every MB intra, bS 3), per-MB QP grids
         blocky = np.kron(rng.integers(0, 256, (S, mb_h * 4, mb_w * 4)),
@@ -540,16 +579,23 @@ def card_vs_cpu():
 def encoder_card_vs_cpu():
     """Phase 3, the Encoder: the scene-cut clip at param_default(), at the
     CQP + CABAC settings with forced types and QPs, and at the live-stream
-    CBR cut to 40 kbit/s and a 6 kbit buffer under CABAC and CAVLC, the
-    card against the CPU."""
+    CBR cut to 40 kbit/s and a 6 kbit buffer under CABAC and CAVLC; the
+    multi-ref clip at 3 references with the JVT lists and noise
+    reduction, its corrupt marks and its extreme frame at QP 0, under
+    CAVLC (whose overflow re-encode must fire) and CABAC; then the CLI:
+    the card against the CPU."""
     import torch
     import x264dsp_tpu_torch as xtt
     from x264dsp_tpu_torch import params as P
     from x264dsp_tpu_torch.tools.mainpath import (ENCODER_FORCED,
+                                                  REFS_FORCED, REFS_MARKS,
+                                                  MarkingEncoder,
                                                   encode_clip, encode_diff,
                                                   encoder_cbr_param,
                                                   encoder_cqp_param,
                                                   encoder_param,
+                                                  encoder_refs_param,
+                                                  multiref_clip,
                                                   scene_cut_clip)
     from x264dsp_tpu_torch.encoder.ratecontrol import log2_f32
     # variance AQ's log2 (the JAX package's float32 log2) on the card and
@@ -563,39 +609,77 @@ def encoder_card_vs_cpu():
         fail("AQ's log2 differs between the card and the CPU")
     w, h = 56, 40
     frames = scene_cut_clip(w, h)
+    refs_clip = multiref_clip(w, h)
 
     def cbr(w, h, cabac):
         p = encoder_cbr_param(w, h, 40)
         p.rc.i_vbv_buffer_size = 6
         p.b_cabac = cabac
         return p
-    for label, make, forced in (
-            ("param_default", encoder_param, {}),
+    refs = "3 refs + JVT CQM + NR 100, corrupt marks, extreme frame at QP 0"
+    for label, make, clip0, forced, marks in (
+            ("param_default", encoder_param, frames, {}, {}),
             ("CQP 20 + CABAC + HEX + partitions, forced types and QPs",
-             encoder_cqp_param, ENCODER_FORCED),
+             encoder_cqp_param, frames, ENCODER_FORCED, {}),
             ("CBR 40 kbit/s, 6 kbit buffer, HRD, AQ, lookahead 4, CABAC",
-             lambda w, h: cbr(w, h, 1), {}),
+             lambda w, h: cbr(w, h, 1), frames, {}, {}),
             ("CBR 40 kbit/s, 6 kbit buffer, HRD, AQ, lookahead 4, CAVLC",
-             lambda w, h: cbr(w, h, 0), {})):
-        runs = {}
+             lambda w, h: cbr(w, h, 0), frames, {}, {}),
+            (f"{refs}, CAVLC (overflow re-encode)",
+             lambda w, h: encoder_refs_param(w, h, 3, 0), refs_clip,
+             REFS_FORCED, REFS_MARKS),
+            (f"{refs}, CABAC", lambda w, h: encoder_refs_param(w, h, 3, 1),
+             refs_clip, REFS_FORCED, REFS_MARKS)):
+        runs, encs = {}, {}
         for dev in ("cuda", "cpu"):
             clip = ([[torch.as_tensor(a, device=dev) for a in f]
-                     for f in frames] if dev == "cuda" else frames)
-            runs[dev] = encode_clip(xtt.Encoder(make(w, h), device=dev),
-                                    clip, forced)
+                     for f in clip0] if dev == "cuda" else clip0)
+            encs[dev] = MarkingEncoder(xtt.Encoder(make(w, h), device=dev),
+                                       marks)
+            runs[dev] = encode_clip(encs[dev], clip, forced)
         diff = encode_diff(runs["cuda"], runs["cpu"])
         pics = runs["cpu"]["pics"]
         fillers = sum(t == P.NAL_FILLER for nl in runs["cpu"]["nals"]
                       for t, _ in nl)
-        print(f"card vs CPU, Encoder {label} {w}x{h}, {len(frames)} frames: "
+        last = encs["cuda"].frames[-1]
+        print(f"card vs CPU, Encoder {label} {w}x{h}, {len(clip0)} frames: "
               f"types {[po.i_frame_type for po in pics]} QPs "
               f"{[po.i_frame_qp for po in pics]} bytes "
               f"{sum(len(b) for nl in runs['cpu']['nals'] for _, b in nl)} "
               f"waiting {runs['cpu']['waiting']} filler NALs {fillers} "
+              f"ref histogram {runs['cpu']['summary'].get('ref_histogram')} "
+              f"last frame's overflow re-encodes {last['overflow']} "
               f"identical={diff is None}")
-        if diff is not None or len(pics) != len(frames):
+        if diff is not None or len(pics) != len(clip0):
             fail(f"the card's Encoder differs from the CPU's ({label}): "
                  f"{diff}")
+        cavlc = not make(w, h).b_cabac
+        if marks and (bool(last["overflow"]) != cavlc or not sum(
+                runs["cpu"]["summary"]["ref_histogram"][1:])):
+            fail(f"{label}: no overflow re-encode under CAVLC (or one under "
+                 "CABAC), or no MB took a reference past the nearest")
+    cli_card_vs_cpu(frames)
+
+
+def cli_card_vs_cpu(frames):
+    """Phase 3, the CLI (x264dsp_tpu_torch/cli.py): a 56x40 .yuv through
+    --device cuda and --device cpu must give the same .264 bytes."""
+    from x264dsp_tpu_torch import cli
+    from x264dsp_tpu_torch.utils.yuv import write_yuv
+    work = ROOT / "build" / "smoke"
+    work.mkdir(parents=True, exist_ok=True)
+    src = work / "clip_56x40.yuv"
+    write_yuv(str(src), frames)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        dst = work / f"cli_{dev}.264"
+        if cli.main([str(src), str(dst), "--device", dev]) != 0:
+            fail(f"the CLI failed on --device {dev}")
+        out[dev] = dst.read_bytes()
+    print(f"card vs CPU, CLI 56x40, {len(frames)} frames, param_default: "
+          f"{len(out['cuda'])} bytes, identical={out['cuda'] == out['cpu']}")
+    if out["cuda"] != out["cpu"] or not out["cpu"]:
+        fail("the CLI's .264 on the card differs from the CPU's")
 
 
 def psnr(a, b) -> float:
@@ -960,6 +1044,68 @@ def encoder_cbr_path(n_slate: int = 4, n_clip: int = 5):
     return launches
 
 
+def encoder_refs_path(n_p: int = 4):
+    """Phase 10: the Encoder at 1920x1080 with x264 --preset medium's three
+    references, the JVT scaling lists, noise reduction 100 and CAVLC
+    (mainpath.encoder_refs_param), one I and n_p P frames of phase 4's
+    clip cut to 1080 rows as CUDA tensors, the newest reference marked
+    corrupt before the last frame (so that its list skips it and its
+    header reorders), unprofiled. The first P frame has one reference
+    (K1), the others two or three (K4, the references on the stream
+    axis)."""
+    import torch
+    import x264dsp_tpu_torch as xtt
+    from x264dsp_tpu_torch import params as P
+    from x264dsp_tpu_torch.tools.mainpath import (MarkingEncoder,
+                                                  encoder_refs_param,
+                                                  synth_clip)
+    h = 1080
+    frame = synth_clip(W, H, torch.device("cuda"))
+    frames = [[a[:h >> (i > 0)] for i, a in enumerate(frame(1.0 + t))]
+              for t in range(1 + n_p)]
+    param = encoder_refs_param(W, h, 3)
+    torch.cuda.synchronize()
+    xtt.reset_kernel_launches()
+    t0 = time.perf_counter()
+    enc = MarkingEncoder(xtt.Encoder(param), {n_p: n_p - 1})
+    out, ms = [], []
+    for t, f in enumerate(frames):
+        t1 = time.perf_counter()
+        out.append(enc.encode(xtt.Picture.from_planes(*f, pts=t)))
+        # encode() returns after pulling the frame's payload and recon
+        ms.append((time.perf_counter() - t1) * 1e3)
+    summary = enc.close()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = xtt.kernel_launches()
+    print(f"encoder-refs {W}x{h} 3 refs + JVT CQM + NR 100 + CAVLC: 1 I + "
+          f"{n_p} P frames in {wall:.3f} s = {len(frames) / wall:.3f} fps")
+    for t, ((nals, po), rec) in enumerate(zip(out, enc.frames)):
+        print(f"encoder-refs frame {t}: type {po.i_frame_type} QP "
+              f"{po.i_frame_qp} bytes {sum(len(n.payload) for n in nals)} "
+              f"active refs {rec['n_ref']} reordered {rec['reorder']} "
+              f"device encodes {rec['encodes']} wall {ms[t]:.2f} ms")
+    print(f"encoder-refs ref histogram {summary.get('ref_histogram')}")
+    print(f"kernel launches in encoder-refs: {launches}")
+    missing = [k for k in ("sad_surface16", "sad_surfaces_8x8",
+                           "luma_windows", "chroma_windows", "deblock")
+               if launches[k] <= 0]
+    if missing:
+        fail(f"kernels of encoder-refs never launched: {missing}")
+    worst = min(psnr(po.y, f[0].cpu().numpy())
+                for (_, po), f in zip(out, frames))
+    print(f"encoder-refs recon: worst luma PSNR {worst:.2f} dB over "
+          f"{len(out)} frames")
+    n_refs = [rec["n_ref"] for rec in enc.frames]
+    if ([po.i_frame_type for _, po in out]
+            != [P.TYPE_IDR] + [P.TYPE_P] * n_p or worst < 30.0
+            or n_refs[1:] != [1, 2] + [3] * (n_p - 3) + [2]
+            or not enc.frames[-1]["reorder"]):
+        fail("encoder-refs output is wrong (frame types, active reference "
+             "counts, the reordered last frame or PSNR < 30 dB)")
+    return launches
+
+
 def main() -> None:
     sys.path.insert(0, str(ROOT))
     try:
@@ -990,8 +1136,10 @@ def main() -> None:
     # the S = 1 records are held to phase 8's launches
     encoder_launches = encoder_path()
     encoder_cbr_path()
+    refs_launches = encoder_refs_path()
     for k in kernels:
-        k["launches"] = (encoder_launches if k["streams"] == 1
+        k["launches"] = (refs_launches if "refs]" in k["name"]
+                         else encoder_launches if k["streams"] == 1
                          else launches)[k["name"].split("[")[0]]
     if "jax" in sys.modules:
         fail("jax was imported during the run")

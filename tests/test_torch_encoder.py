@@ -291,32 +291,20 @@ def test_torch_picture_gives_numpy_bytes(frames, port_runs):
 
 
 REFUSED = {
-    "multi-ref": lambda p: setattr(p, "i_frame_reference", 2),
-    "cqm": lambda p: setattr(p, "i_cqm_preset", P.CQM_JVT),
-    "noise reduction": lambda p: setattr(p.analyse, "i_noise_reduction",
-                                         100),
     "slice count": lambda p: setattr(p, "i_slice_count", 2),
     "slice max mbs": lambda p: setattr(p, "i_slice_max_mbs", 4),
     "slice max size": lambda p: setattr(p, "i_slice_max_size", 400),
     "intra refresh": lambda p: setattr(p, "b_intra_refresh", 1),
-    "frame packing 5": lambda p: setattr(p, "i_frame_packing", 5),
 }
-FEATURE = {"multi-ref": "reference",
-           "cqm": "CQM", "noise reduction": "noise reduction",
-           "slice count": "slice", "slice max mbs": "slice",
-           "slice max size": "slice", "intra refresh": "intra refresh",
-           "frame packing 5": "frame packing"}
+FEATURE = {"slice count": "slice", "slice max mbs": "slice",
+           "slice max size": "slice", "intra refresh": "intra refresh"}
 
 
-@pytest.mark.parametrize("name", list(REFUSED) + ["mark_reference_corrupt"])
+@pytest.mark.parametrize("name", list(REFUSED))
 def test_unported_settings_raise(name):
     """(g) every setting of the JAX Encoder that the port does not take
-    raises ValidationError naming the feature; the JAX Encoder takes it."""
-    if name == "mark_reference_corrupt":
-        xt.Encoder(_default(xt)).mark_reference_corrupt()
-        with pytest.raises(xtt.ValidationError, match="recovery path"):
-            xtt.Encoder(_default(xtt), device="cpu").mark_reference_corrupt()
-        return
+    (the multi-slice settings and intra refresh) raises ValidationError
+    naming the feature; the JAX Encoder takes it."""
     pj, pt = _default(xt), _default(xtt)
     REFUSED[name](pj)
     REFUSED[name](pt)

@@ -1,6 +1,8 @@
 """The port's own copies of the JAX package's JAX-free host modules
-(params, api, sets, ratecontrol, bitstream, the C++ CAVLC writers)
-against their originals, on the CPU.
+(params, api, sets, ratecontrol, bitstream, the C++ CAVLC writers, the
+Python CAVLC block writer and the core's overflow detector that runs it,
+the CLI's utils/annexb.py and utils/yuv.py) against their originals, on
+the CPU.
 
 Each test builds the port's parameters with the port's param_default()
 and the JAX package's with its own, through one helper that sets the
@@ -47,6 +49,15 @@ SETTINGS = {
                 "rc.i_qp_constant": 33, "i_fps_num": 30000,
                 "i_fps_den": 1001, "vui.i_sar_width": 4,
                 "vui.i_sar_height": 3, "b_cabac": 0},
+    # the scaling lists in the PPS (profile High), 3 references in the PPS
+    # default, noise reduction
+    "cqm-jvt": {"i_width": 56, "i_height": 40, "i_cqm_preset": 1,
+                "i_frame_reference": 3, "analyse.i_noise_reduction": 100},
+    "cqm-custom": {"i_width": 56, "i_height": 40, "i_cqm_preset": 2,
+                   "cqm_4iy": tuple(range(6, 22)),
+                   "cqm_4py": (16,) * 8 + (40,) * 8,
+                   "cqm_4ic": tuple(range(30, 14, -1)),
+                   "cqm_4pc": (8, 9, 10, 11) * 4, "b_cabac": 0},
 }
 
 
@@ -239,3 +250,84 @@ def test_native_library_builds_in_the_checkout():
     libs = list(tnative.LIB_DIR.glob("libx264t_entropy_*.so"))
     assert libs and all(p.parent.parent.parent == tnative._PKG.parent
                         for p in libs)
+
+
+@pytest.mark.parametrize("chroma_dc", [False, True])
+def test_cavlc_block_writer_matches_jax(chroma_dc):
+    """entropy/cavlc.py (the copy the overflow detector runs): the bits,
+    total_coeff and overflow flag of write_block_residual on random
+    blocks, levels past the escape range included, at every nC class."""
+    from x264dsp_tpu.entropy import cavlc as jcavlc
+    from x264dsp_tpu_torch.entropy import cavlc as tcavlc
+    rng = np.random.default_rng(8 + chroma_dc)
+    n = 4 if chroma_dc else 16
+    n_ov = 0
+    for k in range(300):
+        lv = np.zeros(n, np.int64)
+        m = int(rng.integers(1, n + 1))
+        scale = (2, 30, 5000)[k % 3]
+        lv[rng.choice(n, m, replace=False)] = rng.integers(-scale, scale + 1,
+                                                           m)
+        nc = 0 if chroma_dc else int(rng.choice([0, 2, 4, 8]))
+        outs = []
+        for mod, bw in ((tcavlc, TBitWriter()), (jcavlc, JBitWriter())):
+            res = mod.write_block_residual(bw, lv, nc, chroma_dc=chroma_dc)
+            outs.append((res, bw.get_unaligned()))
+        assert outs[0] == outs[1]
+        n_ov += outs[0][0][1]
+    assert n_ov > 0
+
+
+def test_overflow_detector_matches_jax():
+    """EncoderCore._detect_cavlc_overflow (a copy of the JAX core's) on a
+    random I syntax with a few huge levels: the same flagged MBs."""
+    from x264dsp_tpu.encoder.core import EncoderCore as JCore
+    from x264dsp_tpu_torch.encoder.core import EncoderCore as TCore
+    tp, jp = _both("default")
+    rng = np.random.default_rng(4)
+    t, j = TCore(tp, device="cpu"), JCore(jp)
+    mb_h, mb_w = t.mb_h, t.mb_w
+    syn = {"luma_levels": rng.integers(-3, 4, (mb_h, mb_w, 16, 16)),
+           "chroma_dc_levels": rng.integers(-3, 4, (mb_h, mb_w, 2, 4)),
+           "chroma_ac_levels": rng.integers(-3, 4, (mb_h, mb_w, 2, 4, 16)),
+           "luma_dc_levels": rng.integers(-3, 4, (mb_h, mb_w, 16)),
+           "cbp_luma": rng.choice([0, 15], (mb_h, mb_w)),
+           "cbp_chroma": rng.integers(0, 3, (mb_h, mb_w)),
+           "mb_type": rng.integers(0, 2, (mb_h, mb_w))}
+    for key, idx in (("luma_dc_levels", (0, 1, 0)),
+                     ("luma_levels", (1, 2, 5, 0)),
+                     ("chroma_ac_levels", (2, 0, 1, 3, 1)),
+                     ("luma_levels", (2, 3, 0, 3))):
+        syn[key][idx] = 6000
+    for st in (TP.SLICE_TYPE_I, TP.SLICE_TYPE_P):
+        got = t._detect_cavlc_overflow(syn, st)
+        want = j._detect_cavlc_overflow(syn, st)
+        np.testing.assert_array_equal(got, want)
+        assert got.any()
+
+
+def test_annexb_and_yuv_copies_match_jax(tmp_path):
+    """utils/annexb.py and utils/yuv.py, the CLI's copies: NAL split and
+    EBSP unescape of an Encoder stream, the WxH parse and a frame read."""
+    from x264dsp_tpu.utils import annexb as jab
+    from x264dsp_tpu.utils import yuv as jyuv
+    from x264dsp_tpu_torch.utils import annexb as tab
+    from x264dsp_tpu_torch.utils import yuv as tyuv
+    frames = mainpath.scene_cut_clip(32, 32, 2)
+    run = mainpath.encode_clip(
+        xtt.Encoder(_set(TP.param_default(), {"i_width": 32,
+                                              "i_height": 32}),
+                    device="cpu"), frames)
+    stream = b"".join(b for _, b in run["headers"]) + b"".join(
+        b for nl in run["nals"] for _, b in nl)
+    nals = tab.split_nals(stream)
+    assert nals == jab.split_nals(stream) and len(nals) >= 5
+    assert [tab.unescape_ebsp(n) for n in nals] == \
+        [jab.unescape_ebsp(n) for n in nals]
+    path = tmp_path / "clip_32x32.yuv"
+    tyuv.write_yuv(str(path), frames)
+    assert tyuv.parse_resolution(str(path)) == \
+        jyuv.parse_resolution(str(path)) == (32, 32)
+    with tyuv.YUVReader(str(path)) as a, jyuv.YUVReader(str(path)) as b:
+        for x, y in zip(a.read_frame(1), b.read_frame(1)):
+            np.testing.assert_array_equal(x, y)

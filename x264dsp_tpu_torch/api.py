@@ -123,10 +123,16 @@ class Encoder:
         return self._core.close()
 
     def mark_reference_corrupt(self, frame_idx: int | None = None):
-        """In-band recovery (c) of the JAX Encoder: not ported."""
-        raise P.ValidationError("mark_reference_corrupt (recovery path "
-                                "(c)) is not ported to the PyTorch "
-                                "Encoder yet")
+        """Flag reference frame(s) as corrupt (x264_frame_t.b_corrupt,
+        common/frame.h:188; api.py:117-127): corrupt frames are skipped
+        when the reference list is built (encoder.c:825-826) with an
+        explicit ref_pic_list_modification (encoder.c:777-788), and the
+        next frame is forced to an IDR only when no valid reference
+        remains (encoder.c:1808-1820). frame_idx selects one DPB entry by
+        its encode-order frame index; None marks every held reference."""
+        for e in self._core.dpb:
+            if frame_idx is None or e["frame_idx"] == frame_idx:
+                e["corrupt"] = True
 
     def parameters(self) -> P.Param:
         """x264_encoder_parameters twin (encoder/encoder.c:638): a copy

@@ -17,7 +17,11 @@ and the lookahead queue, one host RateControl with variance AQ
 (ratecontrol.aq_offsets, per-MB QP grids through both halves of the
 frame step) and VBV (the row-VBV walk, the VBV re-encode, the HRD SEIs
 and the CBR filler NAL), CAVLC packed on the device or CABAC written by
-the host C++ writer from one pull of the frame's syntax.
+the host C++ writer from one pull of the frame's syntax; up to REF_MAX
+references in a DPB that skips corrupt frames (recovery path (c)) and
+orders frame packing 5's views, the scaling lists, noise reduction, and
+the CAVLC overflow re-encode (recovery path (a)) whose frames the host
+C++ CAVLC writers write.
 
 The host helpers below are JAX-free copies of their namesakes in
 x264dsp_tpu/encoder/core.py (which imports JAX), each marked with its
@@ -35,12 +39,13 @@ import torch
 
 from .. import params as P
 from ..api import NAL, Picture
+from ..entropy import cavlc
 from ..entropy import cavlc_device as CD
 from ..entropy import native
 from ..entropy.bitstream import BitWriter, nal_unit
 from ..ops import deblock as DB
 from ..ops import mc as MC
-from ..ops.tables import CHROMA_QP_TABLE
+from ..ops.tables import CHROMA_QP_TABLE, CQM_JVT_LISTS
 from . import inter_frame, intra_frame
 from .ratecontrol import RateControl, aq_offsets
 from .sets import (PPS, SPS, filler_rbsp, sei_buffering_period_rbsp,
@@ -121,12 +126,15 @@ def deblock_enabled(param, qp: int) -> bool:
     return bool(param.b_deblocking_filter and thresh > 15)
 
 
-def write_slice_header_common(enc, bw, slice_type, qp, idr_pic_id):
+def write_slice_header_common(enc, bw, slice_type, qp, idr_pic_id,
+                              n_ref: int = 1):
     """Copy of core.py:1857-1902 EncoderCore._write_slice_header_common
     (x264_slice_header_write, encoder.c:1047-1196), duck-typed on `enc`
-    (param, sps, pps, frame_num): one slice from MB 0, one active
-    reference (the PPS default, so no num_ref_idx override), no reference
-    reordering (no corrupt reference is ever skipped), and
+    (param, sps, pps, frame_num; an Encoder's _ref_reorder and
+    _active_refs): one slice from MB 0, n_ref active references (the
+    num_ref_idx override where the PPS default differs), the
+    ref_pic_list_modification of the active references' frame_nums where
+    a corrupt reference was skipped or the order is not the default, and
     cabac_init_idc on a CABAC P slice."""
     p = enc.param
     bw.write_ue(0)                      # first_mb_in_slice
@@ -137,8 +145,27 @@ def write_slice_header_common(enc, bw, slice_type, qp, idr_pic_id):
     if idr_pic_id >= 0:
         bw.write_ue(idr_pic_id)
     if slice_type == P.SLICE_TYPE_P:
-        bw.write1(0)                    # num_ref_idx_active_override_flag
-        bw.write1(0)                    # ref_pic_list_reordering_flag_l0
+        # num_ref_idx_override (slice_header_write, encoder.c:1127): the
+        # DPB holds fewer frames than the PPS default early on
+        if n_ref != enc.pps.i_num_ref_idx_l0_default_active:
+            bw.write1(1)
+            bw.write_ue(n_ref - 1)
+        else:
+            bw.write1(0)
+        # ref_pic_list_modification (slice_header_init :1013-1027 +
+        # slice_header_write :1098-1111)
+        if getattr(enc, "_ref_reorder", False):
+            bw.write1(1)
+            pred = enc.frame_num
+            wrap = 1 << enc.sps.i_log2_max_frame_num
+            for fn in enc._active_refs[:n_ref]:
+                diff = fn - pred
+                bw.write_ue(1 if diff > 0 else 0)
+                bw.write_ue((abs(diff) - 1) % wrap)
+                pred = fn
+            bw.write_ue(3)
+        else:
+            bw.write1(0)
     if idr_pic_id >= 0:
         bw.write1(0)                    # no_output_of_prior_pics_flag
         bw.write1(0)                    # long_term_reference_flag
@@ -161,11 +188,23 @@ def payload_cap(mb_w: int, mb_h: int) -> int:
     return -(-cap // 4) * 4
 
 
+def cqm_lists(p):
+    """The scaling lists of the frame step (core.py:383-393): None for the
+    flat CQM (the module tables), else a tuple of the 4 lists
+    4IY/4PY/4IC/4PC."""
+    if p.i_cqm_preset == P.CQM_JVT:
+        return CQM_JVT_LISTS
+    if p.i_cqm_preset == P.CQM_CUSTOM:
+        return tuple(tuple(int(v) for v in lst)
+                     for lst in (p.cqm_4iy, p.cqm_4py, p.cqm_4ic, p.cqm_4pc))
+    return None
+
+
 def frame_cfg(p, mb_w: int, mb_h: int, qp: int, cap_bytes: int,
               deblock_route=None) -> dict:
     """The static settings of the frame step (encode_frame, pack_cavlc,
     reference) for a frame at `qp` under the parameters `p`."""
-    return dict(mb_w=mb_w, mb_h=mb_h,
+    return dict(mb_w=mb_w, mb_h=mb_h, cqm=cqm_lists(p),
                 me_range=p.analyse.i_me_range,
                 mv_range=p.analyse.i_mv_range,
                 me_method=min(max(p.analyse.i_me_method, 0), 3),
@@ -184,10 +223,11 @@ def frame_cfg(p, mb_w: int, mb_h: int, qp: int, cap_bytes: int,
 
 
 def slot_inputs(enc, slice_type: int, qps: list, idr_pic_id: int,
-                qp_mb=None):
+                qp_mb=None, n_ref: int = 1):
     """The per-stream inputs of the frame step at the streams' QPs `qps`,
     duck-typed on `enc` (param, sps, pps, frame_num, device, mb_w, mb_h):
-    each stream's slice header (BitWriter.get_unaligned), and a dict of
+    each stream's slice header (BitWriter.get_unaligned) with n_ref
+    active references, and a dict of
     its packer slots hv / hl (S, n), qp_mb / lam (S, mb_h, mb_w) and the
     (S,) slice_qp (batch.py:247-265). qp_mb: an optional host (S, mb_h,
     mb_w) grid of per-MB QPs (AQ, row VBV), each stream's QP flat when
@@ -196,7 +236,8 @@ def slot_inputs(enc, slice_type: int, qps: list, idr_pic_id: int,
     headers = []
     for qp in qps:
         bw = BitWriter()
-        write_slice_header_common(enc, bw, slice_type, qp, idr_pic_id)
+        write_slice_header_common(enc, bw, slice_type, qp, idr_pic_id,
+                                  n_ref)
         headers.append(bw.get_unaligned())
     elems = [CD.header_elements(*h, max_slots=32) for h in headers]
     dev = enc.device
@@ -271,11 +312,13 @@ def eff_qp_scan(syn, qp_mb, slice_qp, is_i: bool):
 
 
 def encode_frame(cfg: dict, is_p: bool, fy, fu, fv, refs, qp_mb, lam_mb,
-                 clock: StageClock):
+                 clock: StageClock, n_ref: int = 1, nr_offset=None):
     """The encode half of the frame step: the I or P frame encode of S
     streams. cfg: frame_cfg's settings; fy/fu/fv (S, H, W) frames on the
-    device, refs (ref4, refu, refv) for a P frame, qp_mb / lam_mb
-    (S, mb_h, mb_w) int32. Returns the device syntax dict (recon planes
+    device, refs (ref4, refu, refv) for a P frame (with n_ref > 1 a
+    reference axis after the stream axis), qp_mb / lam_mb (S, mb_h, mb_w)
+    int32; nr_offset the P frame's (luma, chroma) noise-reduction
+    offsets or None. Returns the device syntax dict (recon planes
     unfiltered)."""
     cqp = torch.as_tensor(CHROMA_QP_TABLE, device=fy.device)
     qpc_mb = cqp[(qp_mb + cfg["cqpo"]).clamp(0, 51).long()].to(_I32)
@@ -287,11 +330,13 @@ def encode_frame(cfg: dict, is_p: bool, fy, fu, fv, refs, qp_mb, lam_mb,
             cfg["mb_w"], cfg["mb_h"], cfg["me_range"], cfg["mv_range"],
             cfg["dct_decimate"], fast_pskip=cfg["fast_pskip"],
             me_method=cfg["me_method"], subme=cfg["subme"],
-            partitions=cfg["partitions"])
+            partitions=cfg["partitions"], n_ref=n_ref, cqm=cfg["cqm"],
+            nr_offset=nr_offset)
     else:
         syn = intra_frame.encode_i_frame(fy, fu, fv, qp_mb, qpc_mb, lam_mb,
                                          cfg["mb_w"], cfg["mb_h"],
-                                         cfg["use_satd"], cfg["i4x4"])
+                                         cfg["use_satd"], cfg["i4x4"],
+                                         cfg["cqm"])
     clock.mark("encode")
     return syn
 
@@ -319,15 +364,16 @@ def frame_stats(syn, is_p: bool, n_skip):
                     1).to(_I32)], 1)
 
 
-def pack_cavlc(cfg: dict, is_p: bool, syn, qp_mb, slice_qp, hv, hl):
+def pack_cavlc(cfg: dict, is_p: bool, syn, qp_mb, slice_qp, hv, hl,
+               n_ref: int = 1):
     """The device CAVLC slice payloads of S streams (slice_qp (S,), hv /
-    hl (S, n) the slice headers as packer slots). Returns a dict: payload
-    (S, cap_bytes) uint8, bits, ov, n_skip (S,), rows (S, mb_h) and the
-    frame_stats vector."""
+    hl (S, n) the slice headers as packer slots, n_ref active
+    references). Returns a dict: payload (S, cap_bytes) uint8, bits, ov,
+    n_skip (S,), rows (S, mb_h) and the frame_stats vector."""
     mb_w, mb_h = cfg["mb_w"], cfg["mb_h"]
     if is_p:
         payload, bits, n_skip, ov, rows = CD.cavlc_p_payload(
-            {k: syn[k] for k in SYN_P if k != "mv"}, qp_mb, slice_qp, 1,
+            {k: syn[k] for k in SYN_P if k != "mv"}, qp_mb, slice_qp, n_ref,
             mb_h, mb_w, hv, hl, cfg["cap_bytes"], with_rows=True)
     else:
         payload, bits, ov, rows = CD.cavlc_i_payload(
@@ -388,13 +434,14 @@ def frame_step(cfg: dict, is_p: bool, fy, fu, fv, refs, qp_mb, lam_mb,
     return dict(out, planes=planes, recon=recon, syn=syn)
 
 
-def pull_payload(out, cap: int, overflow_msg: str):
+def pull_payload(out, cap: int, overflow_msg: str | None):
     """pack_cavlc's payloads on the host: one small pull of the streams'
     bit counts, overflow flags, summed stats vector and end-of-row bit
     positions, the overflow check against the cap
-    (RuntimeError(overflow_msg)), then a power-of-two bucket of payload
-    bytes. Returns (nbytes (S,), vec, raw (S, bucket) uint8, rows (S,
-    mb_h) int64)."""
+    (RuntimeError(overflow_msg); with overflow_msg None an overflowed
+    payload returns None), then a power-of-two bucket of payload bytes.
+    Returns (nbytes (S,), vec, raw (S, bucket) uint8, rows (S, mb_h)
+    int64)."""
     S = out["bits"].shape[0]
     n_vec = out["stats"].shape[1]
     meta = torch.cat([out["bits"].long(), out["ov"].long(),
@@ -403,6 +450,8 @@ def pull_payload(out, cap: int, overflow_msg: str):
     bits, ov = meta[:S], meta[S:2 * S]
     vec = meta[2 * S:2 * S + n_vec]
     if ov.any() or (bits > cap * 8).any():
+        if overflow_msg is None:
+            return None
         raise RuntimeError(overflow_msg)
     nbytes = (bits + 7) >> 3
     bucket = min(1 << max(12, int(nbytes.max() - 1).bit_length()), cap)
@@ -426,6 +475,17 @@ def pull_syntax(syn, keys, S: int):
             out[s][k] = flat[s, off:off + n].reshape(shape)
         off += n
     return out
+
+
+def _max_level(syn) -> np.ndarray:
+    """Per-MB largest |level| over the luma, chroma DC / AC and (I16)
+    luma DC levels of a host syntax dict (core.py:1131-1141)."""
+    m = np.abs(syn["luma_levels"]).max(axis=(-1, -2))
+    m = np.maximum(m, np.abs(syn["chroma_dc_levels"]).max(axis=(-1, -2)))
+    m = np.maximum(m, np.abs(syn["chroma_ac_levels"]).max(axis=(-1, -2, -3)))
+    if "luma_dc_levels" in syn:
+        m = np.maximum(m, np.abs(syn["luma_dc_levels"]).max(axis=-1))
+    return m.astype(np.int64)
 
 
 class Stats:
@@ -519,13 +579,24 @@ class EncoderCore:
         # per-row bits under VBV, as the JAX core keeps them
         self._last_qp_mb = None
         self._row_bits = None
-        # the newest frame's device encodes (1 + row-VBV passes + VBV
-        # re-encodes), per-MB QP range, filler bytes and buffering-period
-        # SEI (delay, offset) or None
+        # the newest frame's device encodes (1 + overflow re-encodes +
+        # row-VBV passes + VBV re-encodes), per-MB QP range, filler bytes,
+        # buffering-period SEI (delay, offset) or None, active references
+        # and whether its header reorders them
         self.last_frame = None
-        # DPB, nearest first (x264_reference_build, encoder.c:813): each
-        # frame's reference planes (ref4, refu, refv)
+        # DPB, nearest first (x264_reference_build, encoder.c:813): dicts
+        # {planes: (ref4, refu, refv), frame_idx, frame_num, corrupt}
+        # (core.py:403-410); corrupt entries are skipped when the active
+        # list is built, and an IDR is forced when none is left
         self.dpb: list = []
+        # noise reduction (core.py:417-428): per-position |level| sums
+        # [luma, chroma], sample counts and the offsets the next P frame
+        # subtracts, updated after each P frame's final encode
+        self.nr = None
+        if p.analyse.i_noise_reduction:
+            self.nr = {"sum": np.zeros((2, 16), np.int64),
+                       "count": np.zeros(2, np.int64),
+                       "offset": np.zeros((2, 16), np.int32)}
         self._cap = payload_cap(self.mb_w, self.mb_h)
         self.clock = StageClock(self.device, profile)
         # keep_syntax (CAVLC): hold the newest frame's device syntax,
@@ -547,15 +618,10 @@ class EncoderCore:
         each raises ValidationError naming the missing feature."""
         p = self.param
         refused = (
-            (p.i_frame_reference > 1, "more than one reference frame"),
-            (p.i_cqm_preset != P.CQM_FLAT, "non-flat CQM"),
-            (p.analyse.i_noise_reduction, "noise reduction"),
             (max(1, p.i_slice_count) > 1 or p.i_slice_max_mbs
              or p.i_slice_max_size, "more than one slice per frame "
              "(i_slice_count, i_slice_max_mbs, i_slice_max_size)"),
-            (p.b_intra_refresh, "periodic intra refresh"),
-            (p.i_frame_packing == 5, "frame packing 5 (one view per "
-             "frame)"))
+            (p.b_intra_refresh, "periodic intra refresh"))
         for hit, feature in refused:
             if hit:
                 raise P.ValidationError(
@@ -652,21 +718,39 @@ class EncoderCore:
             p.rc.i_qp_min, min(p.rc.i_qp_max, P.QP_MAX_SPEC)).to(
                 _I32).cpu().numpy()
 
+    def _valid_refs(self, st_idx: int) -> list:
+        """The reference list of frame st_idx (core.py:821-833): the DPB
+        less its corrupt entries (x264_reference_build, encoder.c:825-826),
+        sorted by view pair under frame packing 5."""
+        valid = [e for e in self.dpb if not e["corrupt"]]
+        if self.param.i_frame_packing == 5 and len(valid) > 1:
+            # 3D one-view-per-frame: L0 orders by the view-pair distance
+            # (x264_reference_distance, encoder.c:804-810; sort at
+            # :833-853) so that the same-view frame of each pair ranks
+            # first; a stable sort over the nearest-first list
+            valid.sort(key=lambda e: abs((st_idx & ~1) - (e["frame_idx"] & ~1))
+                       + ((st_idx & 1) != (e["frame_idx"] & 1)))
+        return valid
+
     def _encode_frame(self, rec: dict, planned: list):
-        """core.py:816-1373 for one slice and one reference, in the JAX CPU
-        path's order (its multi-dispatch flow, core.py:1100-1320): the
-        SEIs, the first write, up to 3 row-VBV passes, up to 8 VBV
+        """core.py:816-1373 for one slice, in the JAX CPU path's order (its
+        multi-dispatch flow, core.py:1100-1320): the active reference list
+        and the forced IDR when none is valid, the SEIs, the first encode,
+        the CAVLC overflow re-encode (recovery path (a), core.py
+        :1102-1147), the first write, up to 3 row-VBV passes, up to 8 VBV
         re-encodes while the frame exceeds rc.frame_size_limit(), the
-        row predictors' update from the final encode, rc.end over every
-        NAL and the CBR filler NAL."""
+        row predictors' update from the final encode, the noise-reduction
+        update, rc.end over every NAL and the CBR filler NAL."""
         p = self.param
         clock = self.clock
         pic, planes, st_idx = rec["pic"], rec["planes"], rec["st_idx"]
         slice_type, is_keyframe = rec["slice_type"], rec["is_keyframe"]
+        valid_dpb = self._valid_refs(st_idx)
         is_idr = is_keyframe
         if not is_keyframe and (pic.i_type == P.TYPE_IDR or pic.b_keyframe
-                                or not self.dpb):
-            # user-forced IDR, or no reference left (encoder.c:1808-1820)
+                                or not valid_dpb):
+            # user-forced IDR, or no valid reference left (encoder.c
+            # :1808-1820)
             slice_type, is_keyframe, is_idr = P.SLICE_TYPE_I, True, True
             self.slicetype.last_keyframe = st_idx
         elif not is_keyframe and pic.i_type == P.TYPE_I:
@@ -688,27 +772,62 @@ class EncoderCore:
         qp_mb = self._qp_grid(planes, qp)
         clock.mark("aq")
         is_p = slice_type == P.SLICE_TYPE_P
+        n_ref = min(len(valid_dpb), p.i_frame_reference) if is_p else 1
+        # when a corrupt entry was skipped, the encoder's list diverges
+        # from the decoder's default order: an explicit
+        # ref_pic_list_modification (x264_reference_check_reorder,
+        # encoder.c:777-799; core.py:880-890)
+        active = valid_dpb[:n_ref]
+        self._ref_reorder = is_p and (
+            any(e["corrupt"] for e in self.dpb)
+            or any(active[i + 1]["frame_idx"] > active[i]["frame_idx"]
+                   for i in range(len(active) - 1)))
+        self._active_refs = [e["frame_num"] for e in active]
         # IDR resets frame_num before the slice header is written
         if is_idr:
             self.frame_num = 0
         idr_id = self.idr_pic_id if is_idr else -1
         cfg = frame_cfg(p, self.mb_w, self.mb_h, qp, self._cap)
-        refs = self.dpb[0] if is_p else None
+        refs = None
+        if is_p and n_ref == 1:
+            refs = active[0]["planes"]
+        elif is_p:
+            # the active references on an axis after the stream axis
+            refs = tuple(torch.stack([e["planes"][i][0] for e in active])[None]
+                         for i in range(3))
+        nr_offset = None
+        if self.nr is not None and is_p:
+            nr_offset = tuple(torch.as_tensor(o, device=self.device)
+                              for o in self.nr["offset"])
         n_skip = 0      # P_SKIP MBs counted by every write of the frame
 
-        def attempt(qp_mb):
-            """One device encode of the frame at the grid qp_mb and its
-            slice payload. A CABAC frame launches its reference half
-            before the host writer runs, so the card filters while the
-            host writes (a re-encode drops it and launches its own); a
-            CAVLC frame's comes from the final encode. The MB-type counts
-            are added at every write, as the JAX host writers do."""
-            nonlocal n_skip
+        def encode_once(qp_mb):
+            """One device encode of the frame at the grid qp_mb; a CAVLC
+            frame also packs its payload on the device (dev: (payload,
+            stats vector, row bits), or None when the packer's overflow
+            flag is set or the bits pass the cap)."""
             headers, x = slot_inputs(self, slice_type, [qp], idr_id,
-                                     qp_mb[None])
+                                     qp_mb[None], n_ref)
             syn = encode_frame(cfg, is_p, *(a[None] for a in planes), refs,
-                               x["qp_mb"], x["lam"], clock)
-            res = dict(syn=syn, x=x)
+                               x["qp_mb"], x["lam"], clock, n_ref,
+                               nr_offset)
+            res = dict(syn=syn, x=x, headers=headers)
+            if not p.b_cabac:
+                res["dev"] = self._pack_cavlc(cfg, slice_type, qp, syn, x,
+                                              headers, n_ref)
+            return res
+
+        def write(res, qp_mb):
+            """The slice payload of an encode, its MB-type counts added as
+            the JAX host writers add them at every write. A CABAC frame
+            launches its reference half before the host writer runs, so
+            the card filters while the host writes (a re-encode drops it
+            and launches its own); a CAVLC frame's comes from the final
+            encode, its payload from the device packer or, where that
+            overflowed, from the host C++ CAVLC writers (core.py
+            :1180-1203)."""
+            nonlocal n_skip
+            syn, x = res["syn"], res["x"]
             if p.b_cabac:
                 host = pull_syntax(syn, SYN_CABAC_P if is_p else SYN_CABAC_I,
                                    1)[0]
@@ -719,14 +838,17 @@ class EncoderCore:
                                        x["slice_qp"], clock)
                 res["payload"], counts, res["row_bits"] = \
                     self._write_slice_cabac(host, slice_type, qp, idr_id,
-                                            qp_mb)
+                                            qp_mb, n_ref)
                 clock.mark("cabac")
                 n_skip += self._count_mb_types(slice_type, counts=counts)
+            elif res["dev"] is not None:
+                res["payload"], res["vec"], res["row_bits"] = res["dev"]
+                n_skip += self._count_mb_types(slice_type, vec=res["vec"])
             else:
                 res["payload"], res["vec"], res["row_bits"] = \
-                    self._pack_cavlc(cfg, slice_type, qp, syn, x, headers)
+                    self._write_slice_cavlc_host(res, slice_type, qp, qp_mb,
+                                                 n_ref)
                 n_skip += self._count_mb_types(slice_type, vec=res["vec"])
-            return res
 
         nals, bp = [], None
         if p.b_repeat_headers and self.i_frame == 0:
@@ -745,7 +867,35 @@ class EncoderCore:
                                                       self._cpb_delay, 0)))
             self._cpb_delay += 2
 
-        res = attempt(qp_mb)
+        res = encode_once(qp_mb)
+        n_ov = 0
+        if not p.b_cabac:
+            # recovery path (a): the packer flagged a CAVLC level-code
+            # overflow (cavlc.c:56-60) or a payload past the cap; the host
+            # detector flags the MBs, which go up by the analytic estimate
+            # ceil(6 log2(maxlev / 1024)) (levels scale ~2^(-dqp/6)), up to
+            # 8 times, then to QP_MAX_SPEC (core.py:1102-1147)
+            for it in range(9):
+                if res["dev"] is not None:
+                    break
+                res["host"] = pull_syntax(res["syn"],
+                                          SYN_P if is_p else SYN_I, 1)[0]
+                flagged = self._detect_cavlc_overflow(res["host"],
+                                                      slice_type)
+                if not flagged.any():
+                    break
+                if it == 8:
+                    bump = np.where(flagged, P.QP_MAX_SPEC, 0)
+                else:
+                    est = np.ceil(6.0 * np.log2(np.maximum(
+                        _max_level(res["host"]), 1) / 1024.0)).astype(
+                            np.int64)
+                    bump = np.where(flagged, np.maximum(est, 1), 0)
+                qp_mb = np.minimum(qp_mb + bump, P.QP_MAX_SPEC).astype(
+                    np.int32)
+                res = encode_once(qp_mb)
+                n_ov += 1
+        write(res, qp_mb)
         n_row, n_frame = 0, 0
         if self.rc.b_vbv:
             qp_hi = min(p.rc.i_qp_max, P.QP_MAX_SPEC)
@@ -764,7 +914,8 @@ class EncoderCore:
                 qp_mb = np.clip(qp_mb + (new_ramp - ramp)[:, None],
                                 p.rc.i_qp_min, qp_hi).astype(np.int32)
                 ramp = new_ramp
-                res = attempt(qp_mb)
+                res = encode_once(qp_mb)
+                write(res, qp_mb)
                 n_row += 1
             # recovery path (b): a frame past the MinCR / VBV ceiling is
             # encoded again at a QP raised by the overshoot (core.py
@@ -777,7 +928,8 @@ class EncoderCore:
                     break
                 step = max(1, int(round(6 * math.log2(bits / limit))))
                 qp_mb = np.minimum(qp_mb + step, P.QP_MAX_SPEC)
-                res = attempt(qp_mb)
+                res = encode_once(qp_mb)
+                write(res, qp_mb)
                 n_frame += 1
             # the row predictors learn from the final encode (:675-681)
             self.rc.row_vbv_commit(slice_type, qp_mb.mean(axis=1),
@@ -801,11 +953,15 @@ class EncoderCore:
             1 << self.sps.i_log2_max_frame_num)
         self.i_frame += 1
         self.last_recon = self._update_reference(ref_planes, recon, is_idr)
+        if nr_offset is not None:
+            self._nr_update(res["syn"])
         filler = self._add_stats(pic, slice_type, qp_mb, nals, vec, n_skip)
-        self.last_frame = dict(encodes=1 + n_row + n_frame, row_vbv=n_row,
+        self.last_frame = dict(encodes=1 + n_ov + n_row + n_frame,
+                               overflow=n_ov, row_vbv=n_row,
                                reencodes=n_frame, qp_min=int(qp_mb.min()),
                                qp_max=int(qp_mb.max()), filler=filler,
-                               bp=bp)
+                               bp=bp, n_ref=n_ref,
+                               reorder=bool(self._ref_reorder))
         if clock.enabled:
             self.frame_times.append((slice_type, dict(clock.times)))
             clock.times.clear()
@@ -821,40 +977,148 @@ class EncoderCore:
                              i_frame_qp=qp, i_frame_type=ftype,
                              i_pts=pic.i_pts)
 
-    def _pack_cavlc(self, cfg, slice_type, qp, syn, x, headers):
+    def _pack_cavlc(self, cfg, slice_type, qp, syn, x, headers, n_ref=1):
         """The device CAVLC payload of the frame, packed and pulled as the
         BatchEncoder does (its bytes equal the host C++ writers'). Returns
         (payload, stats vector, the bits of each MB row, the first without
-        the slice header: core.py:1715-1720)."""
+        the slice header: core.py:1715-1720), or None when the packer
+        raised its overflow flag or the bits pass the cap."""
         out = pack_cavlc(cfg, slice_type == P.SLICE_TYPE_P, syn, x["qp_mb"],
-                         x["slice_qp"], x["hv"], x["hl"])
+                         x["slice_qp"], x["hv"], x["hl"], n_ref)
         if self.keep_syntax:
             self.last_slot = dict(out, syn=syn, slice_type=slice_type,
                                   qps=[qp], headers=headers)
         self.clock.mark("cavlc")
-        nbytes, vec, raw, rows = pull_payload(
-            out, self._cap, "device CAVLC overflow (pathological content "
-            "for the payload cap); the re-encode at a raised QP is not "
-            "ported")
+        got = pull_payload(out, self._cap, None)
         self.clock.mark("pull")
+        if got is None:
+            return None
+        nbytes, vec, raw, rows = got
         hb, hn = headers[0]
         row_bits = np.diff(rows[0], prepend=(len(hb) - 1) * 8 + hn)
         return raw[0, :nbytes[0]].tobytes(), vec, row_bits
 
-    def _write_slice_cabac(self, syn, slice_type, qp, idr_pic_id, qp_mb):
+    def _write_slice_cavlc_host(self, res, slice_type, qp, qp_mb, n_ref):
+        """A CAVLC frame that the device packer could not pack, written by
+        the host C++ CAVLC writers (core.py:1697-1727, 2246-2278) on its
+        pulled syntax (res["host"], pulled here if the overflow loop has
+        not). Returns (payload, stats vector with the writer's P_SKIP
+        count, the bits of each MB row, the first without the slice
+        header)."""
+        syn = res["syn"]
+        is_p = slice_type == P.SLICE_TYPE_P
+        if "host" not in res:
+            res["host"] = pull_syntax(syn, SYN_P if is_p else SYN_I, 1)[0]
+        vec = frame_stats(syn, is_p, torch.zeros(
+            1, dtype=_I32, device=self.device))[0].cpu().numpy()
+        header = res["headers"][0]
+        rb = np.zeros(self.mb_h, np.int64)
+        if is_p:
+            payload, vec[0] = native.write_slice_p(
+                header, self.mb_w, self.mb_h, qp, res["host"], qp_mb=qp_mb,
+                n_ref=n_ref, row_bits=rb)
+        else:
+            payload = native.write_slice_i(header, self.mb_w, self.mb_h, qp,
+                                           res["host"], qp_mb=qp_mb,
+                                           row_bits=rb)
+        self.clock.mark("cavlc_host")
+        hb, hn = header
+        return payload, vec, np.diff(rb, prepend=(len(hb) - 1) * 8 + hn)
+
+    def _detect_cavlc_overflow(self, syn, slice_type) -> np.ndarray:
+        """Copy of core.py:553-602 EncoderCore._detect_cavlc_overflow:
+        per-MB CAVLC level-code overflow detection (cavlc.c:56-60: escape
+        level_code >= 1<<12 below High profile). Cheap magnitude screen,
+        then the exact writer state machine on suspect MBs only.
+        Returns a (mb_h, mb_w) bool grid."""
+        mb_h, mb_w = self.mb_h, self.mb_w
+        flagged = np.zeros((mb_h, mb_w), bool)
+        # minimum |level| that can escape with level_code >= 1<<12 is
+        # > 2^11; screen generously at 256
+        suspects = np.abs(syn["luma_levels"]).max(axis=(-1, -2)) >= 256
+        suspects |= np.abs(syn["chroma_dc_levels"]).max(axis=(-1, -2)) >= 256
+        suspects |= np.abs(syn["chroma_ac_levels"]).max(
+            axis=(-1, -2, -3)) >= 256
+        if "luma_dc_levels" in syn:
+            suspects |= np.abs(syn["luma_dc_levels"]).max(axis=-1) >= 256
+        if not suspects.any():
+            return flagged
+
+        def block_ov(levels, chroma_dc=False):
+            bw = BitWriter()
+            _, ov = cavlc.write_block_residual(bw, levels, 0,
+                                               chroma_dc=chroma_dc)
+            return ov
+
+        is_i = slice_type == P.SLICE_TYPE_I
+        for mby, mbx in zip(*np.nonzero(suspects)):
+            ov = False
+            cbp_luma = int(syn["cbp_luma"][mby, mbx])
+            is_i16 = is_i and syn["mb_type"][mby, mbx] == 0
+            for i in range(16):
+                lv = syn["luma_levels"][mby, mbx, i]
+                if is_i16:
+                    if cbp_luma:
+                        ov |= block_ov(lv[1:])
+                elif cbp_luma & (1 << (i >> 2)):
+                    ov |= block_ov(lv)
+            if is_i16:
+                ov |= block_ov(syn["luma_dc_levels"][mby, mbx])
+            cbp_chroma = int(syn["cbp_chroma"][mby, mbx])
+            if cbp_chroma:
+                for ch in range(2):
+                    ov |= block_ov(syn["chroma_dc_levels"][mby, mbx, ch],
+                                   chroma_dc=True)
+                if cbp_chroma == 2:
+                    for ch in range(2):
+                        for i in range(4):
+                            ov |= block_ov(
+                                syn["chroma_ac_levels"][mby, mbx, ch, i, 1:])
+            flagged[mby, mbx] = ov
+        return flagged
+
+    def _nr_update(self, syn):
+        """Copy of core.py:622-642 EncoderCore._nr_update on the final
+        encode's device sums (one small pull): the between-frame
+        noise-reduction offset update (upstream x264's
+        x264_noise_reduction_update), offset = (nr·count + sum/2) /
+        (sum+1), with the sliding-window halving at 2^18 samples."""
+        flat = torch.cat([syn["nr_sum_y"][0], syn["nr_sum_c"][0],
+                          syn["nr_count"][0]]).cpu().numpy()
+        nr = self.nr
+        nr["sum"][0] += flat[:16]
+        nr["sum"][1] += flat[16:32]
+        nr["count"] += flat[32:34]
+        strength = self.param.analyse.i_noise_reduction
+        for cat in range(2):
+            if nr["count"][cat] > (1 << 18):
+                nr["sum"][cat] >>= 1
+                nr["count"][cat] >>= 1
+            nr["offset"][cat] = ((strength * nr["count"][cat]
+                                  + nr["sum"][cat] // 2)
+                                 // (nr["sum"][cat] + 1)).astype(np.int32)
+        # the DC position is never denoised in the reference layout
+        # (offset[0] applies to coef 0 pre-extraction; x264 zeroes it)
+        nr["offset"][:, 0] = 0
+
+    def _write_slice_cabac(self, syn, slice_type, qp, idr_pic_id, qp_mb,
+                           n_ref=1):
         """core.py:1904-1941 on the native writer: the slice header, the
         cabac_alignment_one_bits, then the C++ CABAC body with frame_idx
         the input frame counter, at the per-MB QPs qp_mb (host (mb_h,
-        mb_w)). Returns (payload, MB-type counts, the
-        bits of each MB row: x264_cabac_pos starts at 1 bit, so the first
-        row's count holds the slice's opening bit, core.py:1926-1928)."""
+        mb_w)) with n_ref active references. Returns (payload, MB-type
+        counts, the bits of each MB row: x264_cabac_pos starts at 1 bit,
+        so the first row's count holds the slice's opening bit, core.py
+        :1926-1928)."""
         bw = BitWriter()
-        write_slice_header_common(self, bw, slice_type, qp, idr_pic_id)
+        write_slice_header_common(self, bw, slice_type, qp, idr_pic_id,
+                                  n_ref)
         bw.align_1()
         rb = np.zeros(self.mb_h, np.int64)
         payload, counts = native.write_slice_cabac(
             bw.get_bytes(), self.mb_w, self.mb_h, qp, self.i_frame,
-            slice_type == P.SLICE_TYPE_P, syn, qp_mb=qp_mb, row_bits=rb)
+            slice_type == P.SLICE_TYPE_P, syn, qp_mb=qp_mb, n_ref=n_ref,
+            row_bits=rb)
         return payload, counts, np.diff(rb, prepend=1)
 
     def _update_reference(self, planes, recon, is_idr):
@@ -863,7 +1127,10 @@ class EncoderCore:
         recon, cast to uint8 on the device, in one copy."""
         if is_idr:
             self.dpb = []
-        self.dpb.insert(0, planes)
+        self.dpb.insert(0, {"planes": planes, "frame_idx": self.i_frame - 1,
+                            "frame_num": (self.frame_num - 1)
+                            % (1 << self.sps.i_log2_max_frame_num),
+                            "corrupt": False})
         del self.dpb[max(self.param.i_frame_reference, 1):]
         flat = torch.cat([r.reshape(-1) for r in recon]).cpu().numpy()
         out, off = [], 0

@@ -1,9 +1,9 @@
-"""P-frame encode over a stream batch — port of the BatchEncoder subset
-of x264dsp_tpu/encoder/inter_frame.py: ``encode_p_frame`` with one
-reference, the DIA or HEX pattern walk (me_method 0 or 1), the UMH
-surface argmin (2) and the ESA exact-MVP wavefront (3), the subpel
-refine of subme 0-11, the fast P-skip probe, and the 16x8/8x16/8x8
-partition analysis.
+"""P-frame encode over a stream batch — port of
+x264dsp_tpu/encoder/inter_frame.py: ``encode_p_frame`` with up to
+REF_MAX references, the DIA or HEX pattern walk (me_method 0 or 1), the
+UMH surface argmin (2) and the ESA exact-MVP wavefront (3), the subpel
+refine of subme 0-11, the fast P-skip probe, the 16x8/8x16/8x8
+partition analysis, the scaling lists and noise reduction.
 
 Every tensor carries a leading stream axis S in place of the JAX vmap.
 With DIA or HEX and no partitions the walk reads the 16x16 SAD surface
@@ -674,9 +674,11 @@ def decide_partitions(cost8, mv16_field, fenc_y, wins4, lam, mb_w: int,
 
 
 def probe_pskip(fenc_y, fenc_u, fenc_v, wins4, winsu, winsv, pskip_mv,
-                qp_mb, qpc_mb, mb_w: int, mb_h: int, mv_range: int):
-    """x264_macroblock_probe_pskip (macroblock.c:492-604) for every MB:
-    returns (ok (S, mb_h, mb_w) bool, clamped skip MVs (S, mb_h, mb_w, 2))."""
+                qp_mb, qpc_mb, mb_w: int, mb_h: int, mv_range: int,
+                cqm=None):
+    """x264_macroblock_probe_pskip (macroblock.c:492-604) for every MB,
+    on the inter scaling lists (4PY, 4PC) of cqm: returns (ok (S, mb_h,
+    mb_w) bool, clamped skip MVs (S, mb_h, mb_w, 2))."""
     S = fenc_y.shape[0]
     B = S * mb_h * mb_w
     mvmin_x, mvmax_x, mvmin_y, mvmax_y = make_mv_ranges(mb_w, mb_h, mv_range,
@@ -689,7 +691,7 @@ def probe_pskip(fenc_y, fenc_u, fenc_v, wins4, winsu, winsv, pskip_mv,
     pred_y = untile_mb(MG.mc_luma_batched(wins4, fx, fy_, 16, 16), S, mb_w,
                        mb_h, 16)
     z_cm = RP.zigzag_order(RP.quant_cm(RP.sub_dct_cm(fenc_y, pred_y), qp_mb,
-                                       False, 4))
+                                       False, 4, cqm, 1))
     sc_bg = torch.where(RP.nnz_cm(z_cm) > 0, RP.decimate_score_cm(z_cm), 0)
     luma_ok = sc_bg.reshape(S, mb_h, 4, mb_w, 4).sum(
         dim=(2, 4), dtype=_I32) < 6
@@ -705,10 +707,10 @@ def probe_pskip(fenc_y, fenc_u, fenc_v, wins4, winsu, winsv, pskip_mv,
         cm = RP.sub_dct_cm(fenc_c, predc)
         dc_mb = RP.blockgrid_to_mb(cm[:, 0], mb_h, mb_w, 2).reshape(
             S, mb_h, mb_w, 4)
-        q_dc = T.quant_dc(T.hadamard2x2(dc_mb), qpc_mb, False)
+        q_dc = T.quant_dc(T.hadamard2x2(dc_mb), qpc_mb, False, cqm, 3)
         dc_nz = (q_dc != 0).any(-1)
         cm_ac = torch.cat([torch.zeros_like(cm[:, :1]), cm[:, 1:]], 1)
-        zc = RP.zigzag_order(RP.quant_cm(cm_ac, qpc_mb, False, 2))
+        zc = RP.zigzag_order(RP.quant_cm(cm_ac, qpc_mb, False, 2, cqm, 3))
         acs = torch.where(RP.nnz_cm(zc) > 0, RP.decimate_score_cm(zc[:, 1:]),
                           0)
         ac_score = acs.reshape(S, mb_h, 2, mb_w, 2).sum(dim=(2, 4),
@@ -745,21 +747,41 @@ def _mc_luma_mv8(wins4, mv8f):
     return torch.cat([torch.cat(q[0], -1), torch.cat(q[1], -1)], -2)
 
 
-def _encode_chroma_plane(fenc8p, pred8p, qpc_mb, b_decimate, fs, mb_h, mb_w):
+def _denoise_cm(cm, off, live_bg):
+    """x264_denoise_dct (common/quant.c:194; inter_frame.py:896) over the
+    coefficient planes (S, 16, Hb, Wb): per-stream per-position |level|
+    sums over the live blocks (P_SKIP MBs never reach denoise), then each
+    coefficient moved toward zero by its position's offset off (16,),
+    sign kept. Returns (denoised planes, (S, 16) int64 sums)."""
+    a = cm.abs()
+    sums = torch.where(live_bg[:, None], a, 0).sum(dim=(2, 3),
+                                                   dtype=torch.int64)
+    lvl = (a - off.to(cm.dtype)[None, :, None, None]).clamp(min=0)
+    return torch.sign(cm) * lvl, sums
+
+
+def _encode_chroma_plane(fenc8p, pred8p, qpc_mb, b_decimate, fs, mb_h, mb_w,
+                         cqm=None, nr_off=None):
     """One chroma channel of x264_mb_encode_chroma (b_inter=1,
-    macroblock.c:175-300), whole plane (S, 8mb_h, 8mb_w)."""
+    macroblock.c:175-300), whole plane (S, 8mb_h, 8mb_w), on the scaling
+    list 4PC (set 3) of cqm. nr_off: (16,) noise-reduction offsets,
+    applied before the 2x2 DC extraction (inter_frame.py:1008-1010); their
+    (S, 16) sums come back as nr_sum."""
     S = fenc8p.shape[0]
     cm = RP.sub_dct_cm(fenc8p, pred8p)
+    nr = {}
+    if nr_off is not None:
+        cm, nr["nr_sum"] = _denoise_cm(cm, nr_off, ~RP.up(fs, 2))
     dc_bg = cm[:, 0]
     cm_ac = torch.cat([torch.zeros_like(cm[:, :1]), cm[:, 1:]], 1)
-    q_cm = RP.quant_cm(cm_ac, qpc_mb, False, 2)
+    q_cm = RP.quant_cm(cm_ac, qpc_mb, False, 2, cqm, 3)
     z_cm = RP.zigzag_order(q_cm)
     nnz_ac_bg = RP.nnz_cm(z_cm)
     ac_levels = RP.chroma_levels_coding(z_cm, mb_h, mb_w)
     nnz_ac = RP.blockgrid_to_mb(nnz_ac_bg, mb_h, mb_w, 2).reshape(
         S, mb_h, mb_w, 4)
     dc_mb = RP.blockgrid_to_mb(dc_bg, mb_h, mb_w, 2).reshape(S, mb_h, mb_w, 4)
-    q_dc = T.quant_dc(T.hadamard2x2(dc_mb), qpc_mb, False)
+    q_dc = T.quant_dc(T.hadamard2x2(dc_mb), qpc_mb, False, cqm, 3)
     nz_dc = (q_dc != 0).any(-1)
     if b_decimate:
         sc_bg = torch.where(nnz_ac_bg > 0, RP.decimate_score_cm(z_cm[:, 1:]),
@@ -772,14 +794,14 @@ def _encode_chroma_plane(fenc8p, pred8p, qpc_mb, b_decimate, fs, mb_h, mb_w):
     nz_ac = nz_ac & ~fs
     nz_dc = nz_dc & ~fs
 
-    opt_dc, opt_nz = optimize_chroma_dc(q_dc, qpc_mb)
+    opt_dc, opt_nz = optimize_chroma_dc(q_dc, qpc_mb, cqm, 3)
     use_opt = (~nz_ac) & nz_dc & (qpc_mb <= 22)
     dc_final = torch.where(use_opt[..., None], opt_dc, q_dc)
     nz_dc_final = torch.where(use_opt, opt_nz, nz_dc)
     dc_levels = torch.where(nz_dc_final[..., None], dc_final[..., [0, 2, 1, 3]],
                             0)
-    dq_dc = T.idct_dequant_2x2_dc(dc_final, qpc_mb)
-    dq_cm = RP.dequant_cm(q_cm, qpc_mb, 2)
+    dq_dc = T.idct_dequant_2x2_dc(dc_final, qpc_mb, cqm, 3)
+    dq_cm = RP.dequant_cm(q_cm, qpc_mb, 2, cqm, 3)
     dq_dc_bg = RP.mb_to_blockgrid(dq_dc.reshape(S, mb_h, mb_w, 2, 2), mb_h,
                                   mb_w, 2)
     nz_dc_bg = RP.up(nz_dc_final, 2)
@@ -795,16 +817,21 @@ def _encode_chroma_plane(fenc8p, pred8p, qpc_mb, b_decimate, fs, mb_h, mb_w):
     nnz_ac = torch.where(nz_ac[..., None], nnz_ac, 0)
     ac_levels = torch.where(nz_ac[..., None, None], ac_levels, 0)
     return dict(recon=recon, dc_levels=dc_levels, ac_levels=ac_levels,
-                nnz_ac=nnz_ac, nz_dc=nz_dc_final.to(_I32), has_ac=nz_ac)
+                nnz_ac=nnz_ac, nz_dc=nz_dc_final.to(_I32), has_ac=nz_ac,
+                **nr)
 
 
 def encode_p_residual(fenc_y, fenc_u, fenc_v, wins4, winsu, winsv, mv8,
                       qp_mb, qpc_mb, mb_w: int, mb_h: int,
-                      dct_decimate: bool, force_skip):
+                      dct_decimate: bool, force_skip, cqm=None,
+                      nr_offset=None):
     """Inter residual encode of all MBs (encode_p_residual,
     inter_frame.py:912): MC, DCT, inter quant with DCT decimation
-    (macroblock.c:409-446), chroma, reconstruction. force_skip MBs encode
-    as MC-only skips."""
+    (macroblock.c:409-446), chroma, reconstruction, on the inter scaling
+    lists of cqm. force_skip MBs encode as MC-only skips. nr_offset: the
+    (luma, chroma) (16,) noise-reduction offsets or None; with them the
+    dict also holds the coefficient sums nr_sum_y, nr_sum_c (S, 16) and
+    the counts nr_count (S, 2) that the host update reads."""
     S = fenc_y.shape[0]
     B = S * mb_h * mb_w
     fs = force_skip
@@ -812,7 +839,13 @@ def encode_p_residual(fenc_y, fenc_u, fenc_v, wins4, winsu, winsv, mv8,
     pred_y = untile_mb(_mc_luma_mv8(wins4, mv8f), S, mb_w, mb_h, 16)
     cm = RP.sub_dct_cm(fenc_y, pred_y)
     live_bg = ~RP.up(fs, 4)
-    q_cm = RP.quant_cm(cm, qp_mb, False, 4)
+    nr = {}
+    if nr_offset is not None:
+        # noise reduction on every inter-coded path (macroblock.c:520-521)
+        cm, nr["nr_sum_y"] = _denoise_cm(cm, nr_offset[0], live_bg)
+        n_live = (~fs).reshape(S, -1).sum(1, dtype=torch.int64)
+        nr["nr_count"] = torch.stack([n_live * 16, n_live * 4], 1)
+    q_cm = RP.quant_cm(cm, qp_mb, False, 4, cqm, 1)
     z_cm = RP.zigzag_order(q_cm)
     nnz_bg = RP.nnz_cm(z_cm) * live_bg
     z_cm = RP.mask_cm(z_cm, live_bg)
@@ -832,17 +865,20 @@ def encode_p_residual(fenc_y, fenc_u, fenc_v, wins4, winsu, winsv, mv8,
         nnz_mb = RP.luma_nnz_coding(nnz_bg, mb_h, mb_w)
         has = (nnz_mb.reshape(S, mb_h, mb_w, 4, 4) > 0).any(-1)
         cbp_luma = torch.where(has, bits, 0).sum(-1, dtype=_I32)
-    dq_cm = RP.mask_cm(RP.dequant_cm(q_cm, qp_mb, 4), nnz_bg)
+    dq_cm = RP.mask_cm(RP.dequant_cm(q_cm, qp_mb, 4, cqm, 1), nnz_bg)
     recon_y = RP.idct_add_plane(pred_y, dq_cm)
     levels = RP.luma_levels_coding(z_cm, mb_h, mb_w)
     nnz = RP.luma_nnz_coding(nnz_bg, mb_h, mb_w)
 
     pred_u = untile_mb(_mc_chroma_mv8(winsu, mv8f), S, mb_w, mb_h, 8)
     pred_v = untile_mb(_mc_chroma_mv8(winsv, mv8f), S, mb_w, mb_h, 8)
+    nr_c = None if nr_offset is None else nr_offset[1]
     eu = _encode_chroma_plane(fenc_u, pred_u, qpc_mb, dct_decimate, fs,
-                              mb_h, mb_w)
+                              mb_h, mb_w, cqm, nr_c)
     ev = _encode_chroma_plane(fenc_v, pred_v, qpc_mb, dct_decimate, fs,
-                              mb_h, mb_w)
+                              mb_h, mb_w, cqm, nr_c)
+    if nr_offset is not None:
+        nr["nr_sum_c"] = eu["nr_sum"] + ev["nr_sum"]
     any_ac = eu["has_ac"] | ev["has_ac"]
     any_dc = (eu["nz_dc"] | ev["nz_dc"]) != 0
     cbp_chroma = torch.where(any_ac, 2, torch.where(any_dc, 1, 0)).to(_I32)
@@ -853,7 +889,7 @@ def encode_p_residual(fenc_y, fenc_u, fenc_v, wins4, winsu, winsv, mv8,
         chroma_dc_levels=torch.stack([eu["dc_levels"], ev["dc_levels"]], 3),
         chroma_ac_levels=torch.stack([eu["ac_levels"], ev["ac_levels"]], 3),
         chroma_nnz_ac=torch.stack([eu["nnz_ac"], ev["nnz_ac"]], 3),
-        chroma_nz_dc=torch.stack([eu["nz_dc"], ev["nz_dc"]], 3))
+        chroma_nz_dc=torch.stack([eu["nz_dc"], ev["nz_dc"]], 3), **nr)
 
 
 def mv8_to_mv4(mv8, mb_w: int, mb_h: int):
@@ -863,12 +899,14 @@ def mv8_to_mv4(mv8, mb_w: int, mb_h: int):
     return g.repeat_interleave(2, 1).repeat_interleave(2, 2)
 
 
-def compute_strengths_p(nnz_bg, cbp_luma, cbp_chroma, mv8, mb_w, mb_h):
+def compute_strengths_p(nnz_bg, cbp_luma, cbp_chroma, mv8, mb_w, mb_h,
+                        ref_mb):
     """Deblock strengths of a P frame (x264_macroblock_deblock_strength,
-    macroblock.c:677): returns (bs, first_edge_only)."""
+    macroblock.c:677; inter_frame.py:1739-1756) from each MB's reference
+    index ref_mb (S, mb_h, mb_w): returns (bs, first_edge_only)."""
     S = nnz_bg.shape[0]
     dev = nnz_bg.device
-    ref4 = torch.zeros((S, mb_h * 4, mb_w * 4), dtype=_I32, device=dev)
+    ref4 = ref_mb.repeat_interleave(4, 1).repeat_interleave(4, 2)
     intra = torch.zeros((S, mb_h, mb_w), dtype=torch.bool, device=dev)
     bs = DB.compute_strengths(nnz_bg, mv8_to_mv4(mv8, mb_w, mb_h), ref4,
                               intra)
@@ -896,28 +934,104 @@ def fullpel_cost_surfaces(fenc_y, ref_full, mb_w: int, mb_h: int,
                                      me_range).sum(dim=(3, 4), dtype=_I32)
 
 
+def _ref_bits(r: int, n_ref: int) -> int:
+    """te(n_ref - 1) bit size of reference index r (x264_cost_ref,
+    analyse.c:300-308; inter_frame.py:1760)."""
+    if n_ref <= 1:
+        return 0
+    if n_ref == 2:
+        return 1
+    return 2 * int(np.floor(np.log2(r + 1))) + 1
+
+
+def select_ref(cost8_r, lam_mb, me_range: int):
+    """The per-MB reference of the multi-ref analysis (inter_frame.py
+    :1845-1853; analyse.c:787-862): for each reference, the MB's least
+    full-pel 16x16 SAD + lambda * (mv bits at a zero MVP) over the search
+    window, plus lambda * its te() bits; the nearest reference wins ties
+    (jnp.argmin's first minimum, written as a strict-less sweep so that it
+    does not rest on how torch.argmin breaks ties). cost8_r (S, n_ref,
+    mb_h, mb_w, 2, 2, n, n) quadrant SADs, lam_mb (S, mb_h, mb_w). Returns
+    ref_mb (S, mb_h, mb_w) int32."""
+    n_ref = cost8_r.shape[1]
+    bits = device_table(_MVBITS, lam_mb.device)
+    off_bits = bits[4 * torch.arange(-me_range, me_range + 1,
+                                     device=lam_mb.device).abs()]
+    mv_grid = off_bits[:, None] + off_bits[None, :]
+    lam = lam_mb[..., None, None]
+    ref_mb = torch.zeros_like(lam_mb)
+    best = None
+    for r in range(n_ref):
+        surf = cost8_r[:, r].sum(dim=(3, 4), dtype=_I32)
+        c = (surf + lam * mv_grid).flatten(3).amin(-1) \
+            + lam_mb * _ref_bits(r, n_ref)
+        if best is None:
+            best = c
+            continue
+        better = c < best
+        best = torch.where(better, c, best)
+        ref_mb = torch.where(better, r, ref_mb)
+    return ref_mb
+
+
+def _pick_ref(per_ref, ref_mb):
+    """Per-MB rows of the chosen reference: per_ref (S, n_ref, B, ...)
+    with B = mb_h * mb_w, ref_mb (S, mb_h, mb_w) -> (S * B, ...). An index
+    gather stands in for the JAX code's bf16 one-hot sums."""
+    S, _, B = per_ref.shape[:3]
+    s_idx = torch.arange(S, device=per_ref.device)[:, None]
+    b_idx = torch.arange(B, device=per_ref.device)[None, :]
+    return per_ref[s_idx, ref_mb.reshape(S, B).long(), b_idx].reshape(
+        (S * B,) + per_ref.shape[3:])
+
+
 def encode_p_frame(fenc_y, fenc_u, fenc_v, ref4, refu, refv, qp_mb, qpc_mb,
                    lam_mb, mb_w: int, mb_h: int, me_range: int,
                    mv_range: int, dct_decimate: bool,
                    fast_pskip: bool = True, me_method: int = P.ME_DIA,
-                   subme: int = 1, partitions: bool = False):
+                   subme: int = 1, partitions: bool = False, n_ref: int = 1,
+                   cqm=None, nr_offset=None):
     """P-frame pipeline for S streams: fenc_* (S, H, W) planes; ref4
     (S, 4, Hp, Wp), refu/refv (S, Hc+P, Wc+P) int32 reference planes
-    (mc.make_ref_planes / pad_chroma); qp/qpc/lam (S, mb_h, mb_w) int32.
-    Returns the syntax + recon dict of the JAX encode_p_frame (one
-    reference, me_method DIA, HEX, UMH or ESA, subme 0-11, partitions on
-    or off), each tensor with a leading S axis.
+    (mc.make_ref_planes / pad_chroma), or with n_ref > 1 (S, n_ref, ...)
+    the active references nearest first; qp/qpc/lam (S, mb_h, mb_w)
+    int32. Returns the syntax + recon dict of the JAX encode_p_frame
+    (me_method DIA, HEX, UMH or ESA, subme 0-11, partitions on or off, up
+    to REF_MAX references, the scaling lists cqm, noise reduction at
+    nr_offset), each tensor with a leading S axis.
 
-    With DIA or HEX and no partitions the walk is the only reader of the
-    SAD surface, so kernel K1 sums the whole MB in-kernel (the surface16
-    path, inter_frame.py:1807); otherwise kernel K4 writes the quadrant
-    surfaces and the search reads their sum (:1823, :1873): UMH
-    (decide_mvs_parallel) and ESA (decide_mvs) read the classic layout."""
+    With one reference, DIA or HEX and no partitions the walk is the only
+    reader of the SAD surface, so kernel K1 sums the whole MB in-kernel
+    (the surface16 path, inter_frame.py:1807); otherwise kernel K4 writes
+    the quadrant surfaces and the search reads their sum (:1823, :1873)
+    in the classic layout. With n_ref > 1 the references ride the stream
+    axis of K4, K2a and K2b (S * n_ref rows: one launch each per frame)
+    and each MB takes the reference of select_ref, its quadrant surfaces
+    and windows gathered from that reference's (:1830-1872); the P-skip
+    probe reads reference 0 and skipped MBs go back to it (:1891-1906);
+    partitions inherit the MB's reference."""
     S = fenc_y.shape[0]
     dev = fenc_y.device
     fy = fenc_y.to(_I32).contiguous()
-    classic = partitions or me_method not in (P.ME_DIA, P.ME_HEX)
-    if classic:
+    B = S * mb_h * mb_w
+    classic = (partitions or n_ref > 1
+               or me_method not in (P.ME_DIA, P.ME_HEX))
+    if n_ref > 1:
+        # the references on the stream axis, stream-major
+        ref4, refu, refv = (r.reshape((S * n_ref,) + r.shape[2:])
+                            for r in (ref4, refu, refv))
+        cost8_r = fullpel_cost_surfaces_8x8(
+            fy.repeat_interleave(n_ref, 0), ref4[:, 0], mb_w, mb_h,
+            me_range)
+        cost8_r = cost8_r.reshape((S, n_ref) + cost8_r.shape[1:])
+        ref_mb = select_ref(cost8_r, lam_mb, me_range)
+        cost8 = _pick_ref(cost8_r.flatten(2, 3), ref_mb).reshape(
+            (S, mb_h, mb_w) + cost8_r.shape[4:])
+        del cost8_r
+        surf16 = cost8.sum(dim=(3, 4), dtype=_I32)
+        if not partitions:
+            del cost8
+    elif classic:
         cost8 = fullpel_cost_surfaces_8x8(fy, ref4[:, 0], mb_w, mb_h,
                                           me_range)
         surf16 = cost8.sum(dim=(3, 4), dtype=_I32)
@@ -929,12 +1043,19 @@ def encode_p_frame(fenc_y, fenc_u, fenc_v, ref4, refu, refv, qp_mb, qpc_mb,
         surf16 = me_sad.sad_cost_surface16_lanes(fy, strips, mb_w, mb_h,
                                                  me_range)
         del strips
-    wins4 = MG.luma_windows(ref4, mb_w, mb_h).reshape(
-        S * mb_h * mb_w, 4, MG.WIN_L, MG.WIN_L)
-    winsu = MG.chroma_windows(refu, mb_w, mb_h).reshape(
-        S * mb_h * mb_w, MG.WIN_C, MG.WIN_C)
-    winsv = MG.chroma_windows(refv, mb_w, mb_h).reshape(
-        S * mb_h * mb_w, MG.WIN_C, MG.WIN_C)
+    wins4 = MG.luma_windows(ref4, mb_w, mb_h)
+    winsu = MG.chroma_windows(refu, mb_w, mb_h)
+    winsv = MG.chroma_windows(refv, mb_w, mb_h)
+    if n_ref > 1:
+        per_ref = [w.reshape((S, n_ref) + w.shape[1:])
+                   for w in (wins4, winsu, winsv)]
+        r0 = [w[:, 0].reshape((B,) + w.shape[3:]) for w in per_ref]
+        wins4, winsu, winsv = (_pick_ref(w, ref_mb) for w in per_ref)
+    else:
+        wins4, winsu, winsv = (w.reshape((B,) + w.shape[2:])
+                               for w in (wins4, winsu, winsv))
+        r0 = (wins4, winsu, winsv)
+        ref_mb = torch.zeros((S, mb_h, mb_w), dtype=_I32, device=dev)
     if me_method in (P.ME_DIA, P.ME_HEX):
         mv_field = decide_mvs_pattern(surf16, not classic, fy, wins4, lam_mb,
                                       mb_w, mb_h, me_range, mv_range,
@@ -947,10 +1068,16 @@ def encode_p_frame(fenc_y, fenc_u, fenc_v, ref4, refu, refv, qp_mb, qpc_mb,
     skip_ok = torch.zeros((S, mb_h, mb_w), dtype=torch.bool, device=dev)
     if fast_pskip:
         psk = pskip_mv_field(mv_field)
-        skip_ok, skip_mv = probe_pskip(fy, fenc_u, fenc_v, wins4, winsu,
-                                       winsv, psk, qp_mb, qpc_mb, mb_w,
-                                       mb_h, mv_range)
+        # the probe always tests reference 0 (macroblock.c:503-506)
+        skip_ok, skip_mv = probe_pskip(fy, fenc_u, fenc_v, *r0, psk, qp_mb,
+                                       qpc_mb, mb_w, mb_h, mv_range, cqm)
         mv_field = torch.where(skip_ok[..., None], skip_mv, mv_field)
+        if n_ref > 1:
+            # skipped MBs compensate from reference 0
+            ref_mb = torch.where(skip_ok, 0, ref_mb)
+            wins4, winsu, winsv = (_pick_ref(w, ref_mb) for w in per_ref)
+    if n_ref > 1:
+        del per_ref, r0
     if partitions:
         part, mv8 = decide_partitions(cost8, mv_field, fy, wins4, lam_mb,
                                       mb_w, mb_h, me_range, mv_range,
@@ -961,12 +1088,13 @@ def encode_p_frame(fenc_y, fenc_u, fenc_v, ref4, refu, refv, qp_mb, qpc_mb,
         mv8 = mv_field[:, :, :, None, None, :].expand(
             S, mb_h, mb_w, 2, 2, 2).contiguous()
     out = encode_p_residual(fy, fenc_u, fenc_v, wins4, winsu, winsv, mv8,
-                            qp_mb, qpc_mb, mb_w, mb_h, dct_decimate, skip_ok)
+                            qp_mb, qpc_mb, mb_w, mb_h, dct_decimate, skip_ok,
+                            cqm, nr_offset)
     out["mv"] = mv8[:, :, :, 0, 0].contiguous()
     out["mv8"] = mv8
     out["partition"] = part
-    out["ref"] = torch.zeros((S, mb_h, mb_w), dtype=_I32, device=dev)
+    out["ref"] = ref_mb.to(_I32)
     out["bs"], out["feo"] = compute_strengths_p(
         out.pop("luma_nnz_bg"), out["cbp_luma"], out["cbp_chroma"], mv8,
-        mb_w, mb_h)
+        mb_w, mb_h, out["ref"])
     return out

@@ -82,13 +82,14 @@ def _ordered_pick(costs, order):
     return best, mode
 
 
-def optimize_chroma_dc(dc, qp):
+def optimize_chroma_dc(dc, qp, cqm=None, cqm_set: int = 2):
     """optimize_chroma_2x2_dc (common/quant.c:157-192) in the closed form
     of intra_frame.py:_optimize_chroma_dc: each DC coefficient, in 3,2,1,0
     order, moves toward zero by the largest step that keeps every >>6
-    reconstruction in its original rounding band. dc (..., 4), qp (...,).
-    Returns (new_dc, nz)."""
-    dmf = T.dc_dmf(qp)
+    reconstruction in its original rounding band. dc (..., 4), qp (...,);
+    cqm / cqm_set the scaling-list set (transforms.tables). Returns
+    (new_dc, nz)."""
+    dmf = T.dc_dmf(qp, cqm, cqm_set)
     d = [dc[..., c] for c in range(4)]
     a = [sum(h * d[c] for c, h in enumerate(row)) for row in _HAD2x2]
     w = [(aj * dmf) >> 5 for aj in a]
@@ -118,12 +119,12 @@ def optimize_chroma_dc(dc, qp):
     return torch.where(already_zero[..., None], 0, new_dc), nz
 
 
-def _encode_4x4(fenc_blk, pred, qp):
+def _encode_4x4(fenc_blk, pred, qp, cqm=None):
     """x264_mb_encode_i4x4 core (macroblock.h:37-63); qp (N,)."""
-    q = T.quant4x4(T.sub_dct4x4(fenc_blk, pred), qp, True)
+    q = T.quant4x4(T.sub_dct4x4(fenc_blk, pred), qp, True, cqm, 0)
     nz = (q != 0).flatten(1).any(-1)
     recon = torch.where(nz[:, None, None],
-                        T.idct4x4_add(pred, T.dequant4x4(q, qp)),
+                        T.idct4x4_add(pred, T.dequant4x4(q, qp, cqm, 0)),
                         pred.to(_I32))
     return recon, T.zigzag4x4(q), nz.to(_I32)
 
@@ -139,28 +140,29 @@ def _merge_quads(q):
                       torch.cat([q[..., 2, :, :], q[..., 3, :, :]], -1)], -2)
 
 
-def _encode_chroma_channel(fenc8, pred8, qp):
+def _encode_chroma_channel(fenc8, pred8, qp, cqm=None):
     """One chroma channel of x264_mb_encode_chroma, intra, no decimation
-    (macroblock.c:233-300); batched (N, 8, 8), qp (N,)."""
+    (macroblock.c:233-300); batched (N, 8, 8), qp (N,); scaling list
+    4IC (set 2)."""
     bf, bp = _quads(fenc8), _quads(pred8)
     dct = T.sub_dct4x4(bf, bp)                          # (N, 4, 4, 4)
     dc = T.hadamard2x2(dct[..., 0, 0])
     dct = dct.clone()
     dct[..., 0, 0] = 0
     qb = qp[:, None]
-    q_ac = T.quant4x4(dct, qb.expand(-1, 4), True)
+    q_ac = T.quant4x4(dct, qb.expand(-1, 4), True, cqm, 2)
     nnz_ac = (q_ac.flatten(2) != 0).any(-1).to(_I32)
     nz_ac = (nnz_ac != 0).any(-1)
     ac_levels = T.zigzag4x4(q_ac)
-    q_dc = T.quant_dc(dc, qp, True)
+    q_dc = T.quant_dc(dc, qp, True, cqm, 2)
     nz_dc = (q_dc != 0).any(-1)
-    opt_dc, opt_nz = optimize_chroma_dc(q_dc, qp)
+    opt_dc, opt_nz = optimize_chroma_dc(q_dc, qp, cqm, 2)
     use_opt = (~nz_ac) & nz_dc & (qp <= 22)
     dc_final = torch.where(use_opt[:, None], opt_dc, q_dc)
     nz_dc_final = torch.where(use_opt, opt_nz, nz_dc)
     dc_levels = dc_final[:, [0, 2, 1, 3]]
-    dq_dc = T.idct_dequant_2x2_dc(dc_final, qp)
-    dq_ac = T.dequant4x4(q_ac, qb.expand(-1, 4))
+    dq_dc = T.idct_dequant_2x2_dc(dc_final, qp, cqm, 2)
+    dq_ac = T.dequant4x4(q_ac, qb.expand(-1, 4), cqm, 2)
     dq_ac[..., 0, 0] = torch.where(nz_dc_final[:, None], dq_dc, 0)
     rec_ac = T.idct4x4_add(bp, dq_ac)
     rec_dc = (bp.to(_I32) + ((dq_dc + 32) >> 6)[..., None, None]).clamp(0, 255)
@@ -177,8 +179,9 @@ _BY4 = [int(v) * 4 for v in BLOCK_IDX_Y]
 _BX4 = [int(v) * 4 for v in BLOCK_IDX_X]
 
 
-def _encode_i16(fenc16, pred16, qp):
-    """x264_mb_encode_i16x16 (macroblock.c:72-170), I slice."""
+def _encode_i16(fenc16, pred16, qp, cqm=None):
+    """x264_mb_encode_i16x16 (macroblock.c:72-170), I slice; scaling
+    list 4IY (set 0)."""
     N = fenc16.shape[0]
     blk_f = torch.stack([fenc16[:, y:y + 4, x:x + 4]
                          for y, x in zip(_BY4, _BX4)], 1)   # (N, 16, 4, 4)
@@ -189,20 +192,21 @@ def _encode_i16(fenc16, pred16, qp):
     dct = dct.clone()
     dct[..., 0, 0] = 0
     qb = qp[:, None].expand(-1, 16)
-    q = T.quant4x4(dct, qb, True)
+    q = T.quant4x4(dct, qb, True, cqm, 0)
     nnz = (q.flatten(2) != 0).any(-1).to(_I32)
     any_ac = (nnz != 0).any(-1)
     levels = T.zigzag4x4(q)
-    dq_ac = T.dequant4x4(q, qb)
+    dq_ac = T.dequant4x4(q, qb, cqm, 0)
     pos = torch.as_tensor(BLOCK_IDX_Y * 4 + BLOCK_IDX_X,
                           device=fenc16.device).long()
     dc_grid = torch.zeros((N, 16), dtype=_I32, device=fenc16.device)
     dc_grid[:, pos] = dc_raw
     dc_t = T.hadamard4x4(dc_grid.reshape(N, 4, 4), forward=True)
-    q_dc = T.quant_dc(dc_t.reshape(N, 16), qp, True)
+    q_dc = T.quant_dc(dc_t.reshape(N, 16), qp, True, cqm, 0)
     nz_dc = (q_dc != 0).any(-1)
     dc_levels = T.zigzag4x4(q_dc.reshape(N, 4, 4))
-    dc_dq = T.dequant_dc4x4(T.hadamard4x4(q_dc.reshape(N, 4, 4), False), qp)
+    dc_dq = T.dequant_dc4x4(T.hadamard4x4(q_dc.reshape(N, 4, 4), False), qp,
+                            cqm, 0)
     dc_blk = torch.where(nz_dc[:, None], dc_dq.reshape(N, 16)[:, pos], 0)
     dq_ac[..., 0, 0] = dc_blk
     rec_ac = T.idct4x4_add(blk_p, dq_ac)
@@ -240,7 +244,7 @@ def _serial_i4(costs, order, mpm, lam, best, mode, fix4):
 
 def _analyse_encode_i4(fenc16, ytop25, yleft16, qp, lam, thresh, avail_l,
                        avail_t, avail_tl, avail_tr, left_modes, top_modes,
-                       use_satd):
+                       use_satd, cqm=None):
     """I4x4 analysis + inline encode (analyse.c:640-760), 16 blocks in
     coding order on a local (N, 17, 25) buffer: row 0 = topleft, top 16,
     8 topright; column 0 = left; interior = reconstruction so far."""
@@ -332,7 +336,7 @@ def _analyse_encode_i4(fenc16, ytop25, yleft16, qp, lam, thresh, avail_l,
             aborted = aborted | (cost > thresh)
 
         pred = preds[torch.arange(N, device=dev), mode]
-        rec, lv, nz = _encode_4x4(fenc_blk, pred, qp)
+        rec, lv, nz = _encode_4x4(fenc_blk, pred, qp, cqm)
         L[:, y0 + 1:y0 + 5, x0 + 1:x0 + 5] = rec
         M[:, 1 + by, 1 + bx] = mode
         levels[:, idx] = lv
@@ -345,8 +349,9 @@ def _analyse_encode_i4(fenc16, ytop25, yleft16, qp, lam, thresh, avail_l,
 def encode_mb(fenc16, fenc_u8, fenc_v8, ytop25, yleft16, utop9, uleft8,
               vtop9, vleft8, avail_l, avail_t, avail_tl, avail_tr,
               left_modes, top_modes, qp, qpc, lam, use_satd: bool,
-              i4x4_enabled: bool):
-    """Analyse + encode N macroblocks (make_encode_mb, intra_frame.py:429)."""
+              i4x4_enabled: bool, cqm=None):
+    """Analyse + encode N macroblocks (make_encode_mb, intra_frame.py:429);
+    cqm: the scaling lists (None flat)."""
     dev = fenc16.device
     case = _avail_case(avail_l, avail_t, avail_tl)
     mbcmp = PX.satd if use_satd else PX.sad
@@ -361,7 +366,7 @@ def encode_mb(fenc16, fenc_u8, fenc_v8, ytop25, yleft16, utop9, uleft8,
         i4_cost, i4_valid, i4_modes, i4_recon, i4_levels, i4_nnz = \
             _analyse_encode_i4(fenc16, ytop25, yleft16, qp, lam, i16_cost,
                                avail_l, avail_t, avail_tl, avail_tr,
-                               left_modes, top_modes, use_satd)
+                               left_modes, top_modes, use_satd, cqm)
         i4_cost = torch.where(i4_valid, i4_cost, COST_MAX)
     else:
         i4_cost = torch.full_like(i16_cost, COST_MAX)
@@ -372,7 +377,7 @@ def encode_mb(fenc16, fenc_u8, fenc_v8, ytop25, yleft16, utop9, uleft8,
     is_i4 = i4_cost < i16_cost
 
     e16 = _encode_i16(fenc16, preds16[torch.arange(N, device=dev), i16_mode],
-                      qp)
+                      qp, cqm)
     w1 = is_i4[:, None]
     w2 = is_i4[:, None, None]
     cbp_i4 = sum(((i4_nnz[:, 4 * q:4 * q + 4] != 0).any(-1).to(_I32) << q)
@@ -384,8 +389,8 @@ def encode_mb(fenc16, fenc_u8, fenc_v8, ytop25, yleft16, utop9, uleft8,
         + lam[:, None] * _c(_BITSC, dev).to(_I32)
     _, chroma_mode = _ordered_pick(cc, _c(_ORDERC, dev)[case])
     ar = torch.arange(N, device=dev)
-    eu = _encode_chroma_channel(fenc_u8, predsU[ar, chroma_mode], qpc)
-    ev = _encode_chroma_channel(fenc_v8, predsV[ar, chroma_mode], qpc)
+    eu = _encode_chroma_channel(fenc_u8, predsU[ar, chroma_mode], qpc, cqm)
+    ev = _encode_chroma_channel(fenc_v8, predsV[ar, chroma_mode], qpc, cqm)
     any_dc = (eu["nz_dc"] | ev["nz_dc"]) != 0
     cbp_chroma = torch.where(eu["has_ac"] | ev["has_ac"], 2,
                              torch.where(any_dc, 1, 0))
@@ -415,10 +420,11 @@ _OUT_SHAPES = {
 
 
 def encode_i_frame(fenc_y, fenc_u, fenc_v, qp, qpc, lam, mb_w: int,
-                   mb_h: int, use_satd: bool, i4x4_enabled: bool):
+                   mb_h: int, use_satd: bool, i4x4_enabled: bool, cqm=None):
     """Encode S I-frames: fenc_* (S, H, W) planes; qp/qpc/lam (S, mb_h,
-    mb_w) int32 grids. Returns the per-MB syntax dict + unfiltered recon
-    planes of the JAX encode_i_frame, each with a leading S axis."""
+    mb_w) int32 grids; cqm the scaling lists (None flat). Returns the
+    per-MB syntax dict + unfiltered recon planes of the JAX
+    encode_i_frame, each with a leading S axis."""
     from ..ops.deblock import diag_schedule
     S = fenc_y.shape[0]
     dev = fenc_y.device
@@ -474,7 +480,7 @@ def encode_i_frame(fenc_y, fenc_u, fenc_v, qp, qpc, lam, mb_w: int,
             atr.reshape(-1), left_modes.reshape(-1, 4),
             top_modes.reshape(-1, 4), qp[:, ys, xs].reshape(-1),
             qpc[:, ys, xs].reshape(-1), lam[:, ys, xs].reshape(-1),
-            use_satd, i4x4_enabled)
+            use_satd, i4x4_enabled, cqm)
 
         def scatter(plane, size, vals):
             r = (ys * size + PAD)[:, None, None] + torch.arange(

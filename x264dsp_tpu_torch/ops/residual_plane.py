@@ -50,18 +50,19 @@ def up(x, k: int):
     return x.repeat_interleave(k, 1).repeat_interleave(k, 2)
 
 
-def quant_cm(cm, qp_mb, intra: bool, k_up: int):
-    """QUANT_ONE over the 16 planes; qp_mb (S, mb_h, mb_w)."""
-    qmf, qbias, _, _ = T.tables(cm.device)
+def quant_cm(cm, qp_mb, intra: bool, k_up: int, cqm=None, cqm_set: int = 0):
+    """QUANT_ONE over the 16 planes; qp_mb (S, mb_h, mb_w); cqm / cqm_set
+    pick a scaling-list set (transforms.tables)."""
+    qmf, qbias, _, _ = T.tables(cm.device, cqm, cqm_set)
     q = qp_mb.long()
     mf = up(qmf[q], k_up).permute(0, 3, 1, 2)          # (S, 16, Hb, Wb)
     bias = up(qbias[int(intra)][q], k_up).permute(0, 3, 1, 2)
     return T.quant_core(cm, mf, bias)
 
 
-def dequant_cm(q_cm, qp_mb, k_up: int):
+def dequant_cm(q_cm, qp_mb, k_up: int, cqm=None, cqm_set: int = 0):
     """dequant_4x4 over the 16 planes, shl/shr branches per QP."""
-    _, _, dmf_t, _ = T.tables(q_cm.device)
+    _, _, dmf_t, _ = T.tables(q_cm.device, cqm, cqm_set)
     dmf = up(dmf_t[(qp_mb % 6).long()], k_up).permute(0, 3, 1, 2)
     qb = up(qp_mb // 6 - 4, k_up)[:, None]
     nq = (-qb).clamp(min=0)

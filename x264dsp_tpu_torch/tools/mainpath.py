@@ -19,7 +19,15 @@
   + CABAC settings with forced frame types and QPs that hold it to the
   JAX Encoder (tests/test_torch_encoder.py) and the card to the CPU;
 - encoder-cbr: the Encoder as a live stream's CBR (encoder_cbr_param:
-  6000 kbit/s, NAL HRD, variance AQ, the lookahead queue).
+  6000 kbit/s, NAL HRD, variance AQ, the lookahead queue);
+- encoder-refs: the Encoder with x264 --preset medium's three
+  references, the JVT scaling lists, noise reduction and CAVLC
+  (encoder_refs_param), and the small clip whose blocks cycle through
+  three patterns (multiref_clip), with the reference marks and the
+  forced extreme frame (REFS_MARKS, REFS_FORCED, extreme_frame) that
+  hold the multi-ref DPB, recovery paths (a) and (c) and frame packing
+  5 to the JAX Encoder (tests/test_torch_refs.py) and the card to the
+  CPU.
 
 The parameter helpers set their fields on ``p`` when given (any Param
 with the package's fields: the tests pass the JAX package's so that both
@@ -148,6 +156,96 @@ def encoder_cbr_param(w: int, h: int, kbit: int = 6000, p=None):
     p.rc.f_aq_strength = 1.0
     p.rc.i_lookahead = 4
     return p
+
+
+def encoder_refs_param(w: int, h: int, n_ref: int = 3, cabac: int = 0,
+                       p=None):
+    """param_default() with n_ref references (x264 --preset medium has 3),
+    the JVT scaling lists (x264 --cqm jvt), noise reduction 100 (x264
+    --nr 100) and CAVLC unless `cabac`."""
+    from .. import params as P
+    p = encoder_param(w, h, p)
+    p.b_cabac = cabac
+    p.i_frame_reference = n_ref
+    p.i_cqm_preset = P.CQM_JVT
+    p.analyse.i_noise_reduction = 100
+    return p
+
+
+def extreme_frame(w: int, h: int):
+    """tests/test_recovery.py:22 _extreme_frame: a black top MB row over
+    white, whose I16 MBs in row 1 predict DC 0 from the black row; at QP 0
+    their luma DC levels pass CAVLC's escape range (level_code >= 1<<12,
+    cavlc.c:44-59), the more so under the JVT lists (a DC weight of 6
+    against the flat 16)."""
+    y = np.full((h, w), 255, np.uint8)
+    y[:16] = 0
+    u = np.full((h // 2, w // 2), 128, np.uint8)
+    return y, u, u.copy()
+
+
+def multiref_clip(w: int = 56, h: int = 40, n: int = 7, period: int = 3,
+                  seed: int = 5):
+    """n frames of (y, u, v) uint8 numpy planes: a slowly moving texture
+    in which three MBs cycle through `period` random patterns, so that the
+    reference `period` frames back is the best match there (the JAX
+    multi-ref analysis picks it) while too little changes for a scene
+    cut. The last frame is extreme_frame."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    pats = [rng.integers(30, 225, (16, 16)).astype(np.float32)
+            for _ in range(period)]
+    frames = []
+    for t in range(n - 1):
+        y = (110 + 60 * np.sin((xx + t) / 13.0) * np.cos(yy / 17.0)
+             + rng.normal(0, 1.5, (h, w)))
+        for by, bx in ((0, 16), (16, 32), (16, 0)):
+            y[by:by + 16, bx:bx + 16] = pats[t % period]
+        u = (120 + 30 * np.sin((xx[::2, ::2] + t) / 23.0)).clip(0, 255)
+        v = (128 + 30 * np.cos((yy[::2, ::2] + t) / 29.0)).clip(0, 255)
+        frames.append((y.clip(0, 255).astype(np.uint8), u.astype(np.uint8),
+                       v.astype(np.uint8)))
+    frames.append(extreme_frame(w, h))
+    return frames
+
+
+# multiref_clip's reference marks: before frame 5 the newest reference
+# (frame 4) is marked corrupt, so the list skips it and the slice headers
+# carry ref_pic_list_modification; before frame 6, the extreme frame,
+# every reference, so no valid one is left and it is forced to an IDR
+REFS_MARKS = {5: 4, 6: None}
+# and its Picture fields: the extreme frame forced to QP 0, where its
+# CAVLC levels overflow (recovery path (a))
+REFS_FORCED = {6: {"i_qpplus1": 1}}
+
+
+class MarkingEncoder:
+    """An Encoder whose encode(pic) first calls mark_reference_corrupt(
+    marks[t]) when the t-th picture is in `marks` (for encode_clip), and
+    keeps each encoded frame's last_frame record (active references,
+    reorder, device encodes) in `frames` (the port's Encoder; the JAX one
+    keeps no such record)."""
+
+    def __init__(self, enc, marks: dict):
+        self.enc, self.marks, self.t = enc, marks, 0
+        self.frames = []
+
+    def headers(self):
+        return self.enc.headers()
+
+    def encode(self, pic):
+        if pic is not None:
+            if self.t in self.marks:
+                self.enc.mark_reference_corrupt(self.marks[self.t])
+            self.t += 1
+        nals, po = self.enc.encode(pic)
+        rec = getattr(self.enc._core, "last_frame", None)
+        if po is not None and rec is not None:
+            self.frames.append(dict(rec))
+        return nals, po
+
+    def close(self):
+        return self.enc.close()
 
 
 # encoder_cqp_param's Picture fields per frame: a forced IDR, a forced I

@@ -206,8 +206,10 @@ def encoder_frame(dev) -> None:
     y0, u0, v0 = (C.pad_mod16_tensor(a, m)[None]
                   for a, m in zip(planes[0], (16, 8, 8)))
     core.slicetype.decide(y0[0])
-    core.dpb = [(MC.make_ref_planes(y0).contiguous(),
-                 MC.pad_chroma(u0).contiguous(), MC.pad_chroma(v0).contiguous())]
+    core.dpb = [{"planes": (MC.make_ref_planes(y0).contiguous(),
+                            MC.pad_chroma(u0).contiguous(),
+                            MC.pad_chroma(v0).contiguous()),
+                 "frame_idx": 0, "frame_num": 0, "corrupt": False}]
     core.i_frame = core.frame_num = 1
     pics = iter(xtt.Picture.from_planes(*pl) for pl in planes[1:])
     out = []
