@@ -7,9 +7,12 @@ Phases (any failure exits non-zero):
      deblock, K4 quadrant SAD surfaces, K5a/K5b wave deblock, K6 region
      filter) against its plain PyTorch version at the 1920x1088 shapes
      (R = 16, S = 8; K6 at one full diagonal of all streams, 480
-     regions), exact equality, with CUDA-event times over back-to-back
-     calls (ms: the host's time where a call's wrapper and launch take
-     longer than the kernel, as K6's do), the kernel's own device time
+     regions; K1, K2a, K2b, K3 also at S = 1, phase 8's shapes, K4 at
+     phase 10's, and K1, K2a, K2b at phase 11's: the four 17-row slice
+     bands of one 1080p frame on the stream axis), exact equality, with
+     CUDA-event times over back-to-back calls (ms: the host's time
+     where a call's wrapper and launch take longer than the kernel, as
+     K6's do), the kernel's own device time
      per launch from torch.profiler (device_ms), the least time the
      card could take for the same work (bound_ms; for K1 and K4 their
      packed four-byte SADs at the int32 peak, beside the rate that the
@@ -41,9 +44,18 @@ Phases (any failure exits non-zero):
      forces) at QP 0, under CAVLC (the overflow re-encode must fire) and
      CABAC: identical
      headers, calls that return no frame, NALs, frame types, QPs, pic_out
-     planes and close() summary; and the CLI on the scene-cut clip as a
-     56x40 .yuv (under build/smoke/) with --device cuda against --device
-     cpu: identical .264 bytes;
+     planes and close() summary; the Encoder with several slices per
+     frame and with intra refresh on tools/mainpath.py's 64x96 slices
+     clip (5 frames, CQP 26; every case of mainpath.SLICE_CASES: 3 slices
+     under CAVLC and CABAC, slices of at most 8 MBs, 3 slices under a
+     400-byte slice budget (the I frame's slices are split), intra
+     refresh with 3 slices and keyint 4 (frame 4 stays P), 3 slices under
+     a tight VBV, 3 slices with 2 references (K4 on the stacked band
+     crops)), the card's Encoder profiled (a device sync at each stage):
+     the same checks, one slice NAL per band, and K1, K2a, K2b and K3
+     launched (K4 too with 2 references); and the CLI on the scene-cut clip as a 56x40 .yuv (under
+     build/smoke/) with --device cuda against --device cpu: identical .264
+     bytes;
   4. the main path: BatchEncoder at 1920x1088, S = 8, QP 26, keyint 50,
      CAVLC, DIA, subme 1, one I slot and four P slots of a synthetic clip;
      prints fps and the per-stage split, and holds the device payload of
@@ -67,9 +79,8 @@ Phases (any failure exits non-zero):
   8. encoder: the single-stream Encoder at param_default() (CRF 28,
      CABAC through the host C++ writer, scenecut 20, keyint 50) at
      1920x1080 on stream 0 of phase 4's clip cut to 1080 rows, one I and
-     three P frames given as CUDA tensors: unprofiled (fps, each frame's
-     type, QP and bytes), then profiled with the same bytes (the stage
-     split); and a CAVLC twin of the first two frames, each forced to the
+     three P frames given as CUDA tensors, unprofiled (fps, each frame's
+     type, QP, bytes and wall); and a CAVLC twin of the first two frames, each forced to the
      CRF run's QP, whose pic_out must equal the CABAC run's, whose device
      CAVLC payload must equal the host C++ writers' and whose syntax,
      written by the C++ CABAC writer, must give the CABAC run's slices;
@@ -83,10 +94,9 @@ Phases (any failure exits non-zero):
      cut falls inside keyint_min: no IDR), all as CUDA tensors, then the
      drain with encode(None): the fps, each frame's type, QP (and the
      range of its per-MB QPs), bytes, filler bytes and device encodes,
-     the buffering-period SEI's delay and offset; then profiled with the
-     same bytes (the stage split, with aq and vbv). Requires K1, K2a, K2b
-     and K3 launches, an AQ spread on some frame, a filler NAL and a luma
-     PSNR of 30 dB or more.
+     the buffering-period SEI's delay and offset, unprofiled. Requires
+     K1, K2a, K2b and K3 launches, an AQ spread on some frame, a filler
+     NAL and a luma PSNR of 30 dB or more.
  10. encoder-refs: the Encoder at 1920x1080 with x264 --preset medium's
      three references, the JVT scaling lists, noise reduction 100 and
      CAVLC, one I and four P frames of phase 4's clip cut to 1080 rows,
@@ -97,7 +107,16 @@ Phases (any failure exits non-zero):
      three, on the stream axis), K2a, K2b and K3 launches, the reordered
      last frame and a luma PSNR of 30 dB or more; phase 2 holds K4 at
      its shape.
-Phases 4 to 10 each set the launch counters to 0 just before they drive
+ 11. encoder-slices: the Encoder at param_default() (CRF 28, CABAC) with 4
+     slices per frame (Blu-ray authoring's --slices 4) at 1920x1080, one
+     I and two P frames of phase 8's frames, unprofiled: the fps, each
+     frame's type, QP, bytes, slice NALs, bands and wall (beside phase
+     8's single-slice walls). The bands of one height run as the streams
+     of one frame-step call, and K3 filters the assembled frame across
+     the slice edges. Requires K1, K2a, K2b and K3 launches, 4 bands of
+     17 MB rows and 4 slice NALs on every frame and a luma PSNR of 30 dB
+     or more.
+Phases 4 to 11 each set the launch counters to 0 just before they drive
 the encoder and read them just after; a kernel of the path that was
 never launched fails the run. The line before the last is the kernels'
 JSON record; the last line is {"ok": true, "device": {...}}. Imports
@@ -226,6 +245,73 @@ def kernel_checks():
         return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
                                device=dev)
 
+    # the library calls: one strided view of the padded planes and one
+    # copy with the uint8 conversion (never called by the port)
+    def luma_lib(ref4, mb_h):
+        S, _, Hp, Wp = ref4.shape
+        o = MC.PAD_MC - MG.M_LUMA
+        v = ref4.as_strided(
+            (S, mb_h, mb_w, 4, MG.WIN_L, MG.WIN_L),
+            (4 * Hp * Wp, 16 * Wp, 16, Hp * Wp, Wp, 1), o * Wp + o)
+        return v.to(torch.uint8).reshape(S, mb_h * mb_w, 4, MG.WIN_L,
+                                         MG.WIN_L)
+
+    def chroma_lib(refc, mb_h):
+        S, Hc, Wc = refc.shape
+        o = MC.PAD_MC // 2 - MG.M_CHROMA
+        v = refc.as_strided((S, mb_h, mb_w, MG.WIN_C, MG.WIN_C),
+                            (Hc * Wc, 8 * Wc, 8, Wc, 1), o * Wc + o)
+        return v.to(torch.uint8).reshape(S, mb_h * mb_w, MG.WIN_C,
+                                         MG.WIN_C)
+
+    def motion_cases(tag, fenc, ref4, refc, strips, rows):
+        """K1, K2a and K2b on S streams of `rows` MB rows: fenc (S, 16 rows,
+        W), ref4 / refc their padded reference planes, strips K1's search
+        strips of ref4."""
+        S = fenc.shape[0]
+        n_mb = S * rows * mb_w
+        return [
+            (f"sad_surface16{tag}", "x264dsp_tpu_torch/csrc/me_sad.cu",
+             "x264dsp_tpu/ops/pallas/me_sad.py:138",
+             lambda: me_sad.sad_cost_surface16_lanes_cuda(fenc, strips,
+                                                          mb_w, rows, R),
+             lambda: me_sad.sad_cost_surface16_lanes_plain(fenc, strips,
+                                                           mb_w, rows, R),
+             None, 10, 1, (nbytes(fenc, strips) + 4 * n_mb * n * n,
+                           fenc.numel() * n * n // 4)),
+            (f"luma_windows{tag}", "x264dsp_tpu_torch/csrc/windows.cu",
+             "x264dsp_tpu/ops/pallas/windows.py:30",
+             lambda: MG.luma_windows_cuda(ref4, mb_w, rows),
+             lambda: MG.luma_windows_plain(ref4, mb_w, rows),
+             lambda: luma_lib(ref4, rows), 10, 3,
+             (nbytes(ref4) + n_mb * 4 * MG.WIN_L ** 2, 0)),
+            (f"chroma_windows{tag}", "x264dsp_tpu_torch/csrc/windows.cu",
+             "x264dsp_tpu/ops/pallas/windows.py:68",
+             lambda: MG.chroma_windows_cuda(refc, mb_w, rows),
+             lambda: MG.chroma_windows_plain(refc, mb_w, rows),
+             lambda: chroma_lib(refc, rows), 10, 3,
+             (nbytes(refc) + n_mb * MG.WIN_C ** 2, 0))]
+
+    def band_cases(rng, n_bands=4):
+        """K1, K2a and K2b at phase 11's shape: the n_bands slice bands of
+        one 1080p frame (17 MB rows each) on the stream axis, each band's
+        rows of the padded reference planes with its neighbours' real rows
+        (EncoderCore._encode_bands), tagged "S=4 bands"."""
+        rows = mb_h // n_bands
+        hb, pad = 16 * rows, MC.PAD_MC
+        ref4 = MC.make_ref_planes(t(rng.integers(0, 256, (1, H, W)),
+                                    torch.uint8))
+        refc = MC.pad_chroma(t(rng.integers(0, 256, (1, H // 2, W // 2)),
+                               torch.uint8))
+        ref4 = torch.cat([ref4[:, :, i * hb:(i + 1) * hb + 2 * pad]
+                          for i in range(n_bands)])
+        refc = torch.cat([refc[:, i * hb // 2:(i + 1) * hb // 2 + pad]
+                          for i in range(n_bands)])
+        fenc = t(rng.integers(0, 256, (n_bands, hb, W)))
+        strips = me_sad.make_ref_strips(ref4[:, 0], pad, mb_w, rows, R)
+        return [c + (n_bands,) for c in motion_cases(
+            f"[S={n_bands} bands]", fenc, ref4, refc, strips, rows)]
+
     def cases_at(S: int, rng):
         """The cases at S streams: every kernel at S = S_MAIN; at S = 1
         the four of phase 8's path (K1, K2a, K2b, K3), tagged "S=1" in
@@ -243,52 +329,13 @@ def kernel_checks():
         strips = me_sad.make_ref_strips(ref4[:, 0], MC.PAD_MC, mb_w, mb_h, R)
         refc = MC.pad_chroma(t(rng.integers(0, 256, (S, H // 2, W // 2)),
                                torch.uint8)).contiguous()
-
-        # the library calls: one strided view of the padded planes and one
-        # copy with the uint8 conversion (never called by the port)
-        def luma_lib():
-            _, _, Hp, Wp = ref4.shape
-            o = MC.PAD_MC - MG.M_LUMA
-            v = ref4.as_strided(
-                (S, mb_h, mb_w, 4, MG.WIN_L, MG.WIN_L),
-                (4 * Hp * Wp, 16 * Wp, 16, Hp * Wp, Wp, 1), o * Wp + o)
-            return v.to(torch.uint8).reshape(S, mb_h * mb_w, 4, MG.WIN_L,
-                                             MG.WIN_L)
-
-        def chroma_lib():
-            _, Hc, Wc = refc.shape
-            o = MC.PAD_MC // 2 - MG.M_CHROMA
-            v = refc.as_strided((S, mb_h, mb_w, MG.WIN_C, MG.WIN_C),
-                                (Hc * Wc, 8 * Wc, 8, Wc, 1), o * Wc + o)
-            return v.to(torch.uint8).reshape(S, mb_h * mb_w, MG.WIN_C,
-                                             MG.WIN_C)
-
         sad_sums = S * H * W * n * n // 4
         sad_in = nbytes(fenc, strips)
-        win_l = S * mb_h * mb_w * 4 * MG.WIN_L ** 2        # uint8 out
-        win_c = S * mb_h * mb_w * MG.WIN_C ** 2
         # name, source, TPU kernel, kernel, plain, library call or None,
         # kernel reps, plain reps, (bytes moved, operations at the int32
         # rate: for K1 and K4 their packed sums)
-        cases = [
-            (name("sad_surface16"), "x264dsp_tpu_torch/csrc/me_sad.cu",
-             "x264dsp_tpu/ops/pallas/me_sad.py:138",
-             lambda: me_sad.sad_cost_surface16_lanes_cuda(fenc, strips,
-                                                          mb_w, mb_h, R),
-             lambda: me_sad.sad_cost_surface16_lanes_plain(fenc, strips,
-                                                           mb_w, mb_h, R),
-             None, 10, 1, (sad_in + 4 * S * mb_h * mb_w * n * n, sad_sums)),
-            (name("luma_windows"), "x264dsp_tpu_torch/csrc/windows.cu",
-             "x264dsp_tpu/ops/pallas/windows.py:30",
-             lambda: MG.luma_windows_cuda(ref4, mb_w, mb_h),
-             lambda: MG.luma_windows_plain(ref4, mb_w, mb_h), luma_lib, 10,
-             3, (nbytes(ref4) + win_l, 0)),
-            (name("chroma_windows"), "x264dsp_tpu_torch/csrc/windows.cu",
-             "x264dsp_tpu/ops/pallas/windows.py:68",
-             lambda: MG.chroma_windows_cuda(refc, mb_w, mb_h),
-             lambda: MG.chroma_windows_plain(refc, mb_w, mb_h), chroma_lib,
-             10, 3, (nbytes(refc) + win_c, 0)),
-        ]
+        cases = motion_cases(f"[{tag1}]" if tag1 else "", fenc, ref4, refc,
+                             strips, mb_h)
         if full:
             cases.insert(1, (
                 "sad_surfaces_8x8", "x264dsp_tpu_torch/csrc/me_sad.cu",
@@ -398,7 +445,7 @@ def kernel_checks():
 
     rng = np.random.default_rng(2024)
     cases, p_args, i_args = cases_at(S_MAIN, rng)
-    cases += cases_at(1, rng)[0]
+    cases += cases_at(1, rng)[0] + band_cases(rng)
 
     for (name, src, replaces, kern, plain, lib, reps, preps, work,
          S) in cases:
@@ -419,7 +466,7 @@ def kernel_checks():
         bound_ms, bound_by = bound(*work)
         # K3, K5a and K5b are bound by their critical path: mb_w + 2 mb_h
         # - 2 MB steps
-        sad_n = S * H * W * n * n
+        sad_n = 4 * work[1]     # the SAD cases' pixel-offset pairs
         per_step = (f"  {1e3 * ms / (mb_w + 2 * mb_h - 2):.3f} us per "
                     f"critical-path step (device "
                     f"{1e3 * dev_ms / (mb_w + 2 * mb_h - 2):.3f})"
@@ -658,7 +705,68 @@ def encoder_card_vs_cpu():
                 runs["cpu"]["summary"]["ref_histogram"][1:])):
             fail(f"{label}: no overflow re-encode under CAVLC (or one under "
                  "CABAC), or no MB took a reference past the nearest")
+    slices_card_vs_cpu()
     cli_card_vs_cpu(frames)
+
+
+def slices_card_vs_cpu():
+    """Phase 3, the Encoder's slices and intra refresh on the 64x96 slices
+    clip, every case of mainpath.SLICE_CASES (CQP 26): the card's
+    Encoder, profiled (a device sync at each stage), against the CPU's,
+    one slice NAL per band, and the band encodes' kernels launched."""
+    import torch
+    import x264dsp_tpu_torch as xtt
+    from x264dsp_tpu_torch import params as P
+    from x264dsp_tpu_torch.tools.mainpath import (SLICE_CASES,
+                                                  MarkingEncoder,
+                                                  encode_clip, encode_diff,
+                                                  encoder_slices_param,
+                                                  slices_clip)
+    w, h = 64, 96
+    clip0 = slices_clip(w, h)
+    for name in SLICE_CASES:
+        runs, bands = {}, {}
+        for dev in ("cuda", "cpu"):
+            clip = ([[torch.as_tensor(a, device=dev) for a in f]
+                     for f in clip0] if dev == "cuda" else clip0)
+            xtt.reset_kernel_launches()
+            enc = MarkingEncoder(xtt.Encoder(
+                encoder_slices_param(w, h, name), device=dev,
+                profile=dev == "cuda"), {})
+            runs[dev] = encode_clip(enc, clip)
+            bands[dev] = [f["slices"] for f in enc.frames]
+            if dev == "cuda":
+                launches = xtt.kernel_launches()
+        diff = encode_diff(runs["cuda"], runs["cpu"])
+        if bands["cuda"] != bands["cpu"]:
+            diff = diff or "slice bands"
+        bands = bands["cpu"]
+        pics = runs["cpu"]["pics"]
+        slices = [[b for t, b in nl if t in (P.NAL_SLICE, P.NAL_SLICE_IDR)]
+                  for nl in runs["cpu"]["nals"]]
+        need = ("sad_surface16", "luma_windows", "chroma_windows", "deblock")
+        if name == "refs2":
+            need += ("sad_surfaces_8x8",)
+        print(f"card vs CPU, Encoder slices {name} {w}x{h}, {len(clip0)} "
+              f"frames: types {[po.i_frame_type for po in pics]} slice NALs "
+              f"{[len(s) for s in slices]} bands {bands[0]} (frame 0) "
+              f"largest slice NAL {max(len(b) for s in slices for b in s)} "
+              f"bytes, launches {[launches[k] for k in need]} of {need}, "
+              f"identical={diff is None}")
+        if (diff is not None or len(pics) != len(clip0)
+                or [len(s) for s in slices] != [len(b) for b in bands]):
+            fail(f"the card's Encoder differs from the CPU's (slices "
+                 f"{name}): {diff}")
+        if any(launches[k] <= 0 for k in need):
+            fail(f"slices {name}: a kernel of the band encode never "
+                 f"launched: {need} {[launches[k] for k in need]}")
+        if name == "max-size400" and (
+                max(len(b) for s in slices for b in s) > 400
+                or len(bands[0]) <= 3):
+            fail("slices max-size400: a slice NAL passes 400 bytes, or the "
+                 "I frame was not split")
+        if name == "intra-refresh" and pics[-1].i_frame_type != P.TYPE_P:
+            fail("slices intra-refresh: keyint made an IDR past frame 0")
 
 
 def cli_card_vs_cpu(frames):
@@ -873,10 +981,31 @@ def v2_path(n_p: int = 2):
     return launches
 
 
+class FrameClock:
+    """An Encoder whose encode() calls are timed: ms holds each call's
+    wall in ms (a call returns after pulling its frame's payload and
+    recon)."""
+
+    def __init__(self, enc):
+        self.enc, self.ms = enc, []
+
+    def headers(self):
+        return self.enc.headers()
+
+    def encode(self, pic):
+        t = time.perf_counter()
+        out = self.enc.encode(pic)
+        self.ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    def close(self):
+        return self.enc.close()
+
+
 def encoder_path(n_p: int = 3):
     """Phase 8: the single-stream Encoder at param_default() at 1920x1080,
-    one I and n_p P frames, unprofiled and profiled, and the CAVLC twin of
-    its first two frames."""
+    one I and n_p P frames, unprofiled, and the CAVLC twin of its first
+    two frames."""
     import torch
     import x264dsp_tpu_torch as xtt
     from x264dsp_tpu_torch import params as P
@@ -890,7 +1019,8 @@ def encoder_path(n_p: int = 3):
     torch.cuda.synchronize()
     xtt.reset_kernel_launches()
     t0 = time.perf_counter()
-    run = encode_clip(xtt.Encoder(param), frames)
+    enc = FrameClock(xtt.Encoder(param))
+    run = encode_clip(enc, frames)
     wall = time.perf_counter() - t0
     launches = xtt.kernel_launches()
     pics = run["pics"]
@@ -898,7 +1028,8 @@ def encoder_path(n_p: int = 3):
     print(f"encoder {W}x{h} param_default (CRF 28, CABAC): 1 I + {n_p} P "
           f"frames in {wall:.3f} s = {len(frames) / wall:.3f} fps; types "
           f"{[po.i_frame_type for po in pics]} QPs "
-          f"{[po.i_frame_qp for po in pics]} bytes {sizes}")
+          f"{[po.i_frame_qp for po in pics]} bytes {sizes} frame walls ms "
+          f"{[round(m, 2) for m in enc.ms[:len(frames)]]}")
     print(f"kernel launches in encoder: {launches}")
     missing = [k for k in ("sad_surface16", "luma_windows", "chroma_windows",
                            "deblock") if launches[k] <= 0]
@@ -911,17 +1042,6 @@ def encoder_path(n_p: int = 3):
             or worst < 30.0 or min(sizes) == 0):
         fail("encoder output is wrong (frame types, PSNR < 30 dB or an "
              "empty frame)")
-
-    # the same frames, profiled: the same bytes and the stage split
-    enc = xtt.Encoder(param, profile=True)
-    if encode_clip(enc, frames)["nals"] != run["nals"]:
-        fail("the profiled encoder run wrote other bytes")
-    for kind, name in ((P.SLICE_TYPE_I, "I"), (P.SLICE_TYPE_P, "P")):
-        rows = [tm for st, tm in enc._core.frame_times if st == kind]
-        avg = {k: 1000 * sum(r[k] for r in rows) / len(rows) for k in rows[0]}
-        print(f"encoder {name} frame ms (mean of {len(rows)}): "
-              + " ".join(f"{k} {v:.2f}" for k, v in avg.items())
-              + f" | total {sum(avg.values()):.2f}")
 
     # the CAVLC twin of frames 0 and 1, each forced to the CRF run's QP
     # (mainpath.cabac_twin): the analysis does not read the entropy mode,
@@ -948,7 +1068,7 @@ def encoder_cbr_path(n_slate: int = 4, n_clip: int = 5):
     1920x1080: n_slate frames of a flat slate (an IDR, then P frames that
     spend next to nothing, so the CPB overflows into filler), then n_clip
     P frames of phase 4's clip (the cut inside keyint_min), then the
-    drain; unprofiled and profiled."""
+    drain; unprofiled."""
     import torch
     import x264dsp_tpu_torch as xtt
     from x264dsp_tpu_torch import params as P
@@ -963,28 +1083,23 @@ def encoder_cbr_path(n_slate: int = 4, n_clip: int = 5):
         for t in range(n_clip)]
     param = encoder_cbr_param(W, h)
 
-    def run(profile):
-        """Encode and drain; returns the frames' (NALs, pic_out,
-        last_frame), the calls that returned nothing, and the core."""
-        enc = xtt.Encoder(param, profile=profile)
-        out, waiting = [], 0
-
-        def keep(nals, po):
-            if po is not None:
-                out.append((nals, po, enc._core.last_frame))
-            return po is not None
-        for t, f in enumerate(frames):
-            waiting += not keep(*enc.encode(xtt.Picture.from_planes(*f,
-                                                                    pts=t)))
-        while keep(*enc.encode(None)):
-            pass
-        enc.close()
-        return out, waiting, enc._core
-
     torch.cuda.synchronize()
     xtt.reset_kernel_launches()
     t0 = time.perf_counter()
-    out, waiting, _ = run(False)
+    # encode and drain: each frame's (NALs, pic_out, last_frame), and the
+    # calls that returned nothing
+    enc = xtt.Encoder(param)
+    out, waiting = [], 0
+
+    def keep(nals, po):
+        if po is not None:
+            out.append((nals, po, enc._core.last_frame))
+        return po is not None
+    for t, f in enumerate(frames):
+        waiting += not keep(*enc.encode(xtt.Picture.from_planes(*f, pts=t)))
+    while keep(*enc.encode(None)):
+        pass
+    enc.close()
     wall = time.perf_counter() - t0
     launches = xtt.kernel_launches()
     print(f"encoder-cbr {W}x{h} CBR 6000 kbit/s, NAL HRD, AQ, lookahead 4: "
@@ -1023,24 +1138,6 @@ def encoder_cbr_path(n_slate: int = 4, n_clip: int = 5):
         fail("encoder-cbr: AQ left every frame's per-MB QPs flat")
     if not fillers or out[0][2]["bp"] is None:
         fail("encoder-cbr wrote no filler NAL or no buffering-period SEI")
-
-    # the same frames, profiled: the same bytes and the stage split
-    again, _, core = run(True)
-    if [[n.payload for n in nals] for nals, _, _ in again] != \
-            [[n.payload for n in nals] for nals, _, _ in out]:
-        fail("the profiled encoder-cbr run wrote other bytes")
-    # frame_times is in output order: the slate's IDR and P frames, then
-    # the clip's P frames
-    times = [tm for _, tm in core.frame_times]
-    for name, rows in (("I (slate)", times[:1]),
-                       ("P (slate)", times[1:n_slate]),
-                       ("P (clip)", times[n_slate:])):
-        keys = sorted({k for r in rows for k in r})
-        avg = {k: 1000 * sum(r.get(k, 0.0) for r in rows) / len(rows)
-               for k in keys}
-        print(f"encoder-cbr {name} frame ms (mean of {len(rows)}): "
-              + " ".join(f"{k} {v:.2f}" for k, v in avg.items())
-              + f" | total {sum(avg.values()):.2f}")
     return launches
 
 
@@ -1106,6 +1203,60 @@ def encoder_refs_path(n_p: int = 4):
     return launches
 
 
+def encoder_slices_path(n_p: int = 2):
+    """Phase 11: the Encoder at param_default() with 4 slices per frame at
+    1920x1080, one I and n_p P frames of phase 8's frames as CUDA tensors,
+    unprofiled: 4 bands of 17 MB rows, each band group one frame-step
+    call (S = 4), the assembled frame deblocked by K3 across the slice
+    edges and each band written by the C++ CABAC writer."""
+    import torch
+    import x264dsp_tpu_torch as xtt
+    from x264dsp_tpu_torch import params as P
+    from x264dsp_tpu_torch.tools.mainpath import (MarkingEncoder,
+                                                  encode_clip, encoder_param,
+                                                  synth_clip)
+    h = 1080
+    frame = synth_clip(W, H, torch.device("cuda"))
+    frames = [[a[:h >> (i > 0)] for i, a in enumerate(frame(1.0 + t))]
+              for t in range(1 + n_p)]
+    param = encoder_param(W, h)
+    param.i_slice_count = 4
+    torch.cuda.synchronize()
+    xtt.reset_kernel_launches()
+    t0 = time.perf_counter()
+    enc = FrameClock(MarkingEncoder(xtt.Encoder(param), {}))
+    run = encode_clip(enc, frames)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = xtt.kernel_launches()
+    pics, recs = run["pics"], enc.enc.frames
+    print(f"encoder-slices {W}x{h} param_default (CRF 28, CABAC), 4 slices: "
+          f"1 I + {n_p} P frames in {wall:.3f} s = "
+          f"{len(frames) / wall:.3f} fps")
+    n_slices = [sum(t in (P.NAL_SLICE, P.NAL_SLICE_IDR) for t, _ in nl)
+                for nl in run["nals"]]
+    for t, (nl, po, rec) in enumerate(zip(run["nals"], pics, recs)):
+        print(f"encoder-slices frame {t}: type {po.i_frame_type} QP "
+              f"{po.i_frame_qp} bytes {sum(len(b) for _, b in nl)} slice "
+              f"NALs {n_slices[t]} bands {rec['slices']} device encodes "
+              f"{rec['encodes']} wall {enc.ms[t]:.2f} ms")
+    print(f"kernel launches in encoder-slices: {launches}")
+    missing = [k for k in ("sad_surface16", "luma_windows", "chroma_windows",
+                           "deblock") if launches[k] <= 0]
+    if missing:
+        fail(f"kernels of encoder-slices never launched: {missing}")
+    worst = min(psnr(po.y, f[0].cpu().numpy()) for po, f in zip(pics, frames))
+    print(f"encoder-slices recon: worst luma PSNR {worst:.2f} dB over "
+          f"{len(pics)} frames")
+    bands = [(0, 17), (17, 34), (34, 51), (51, 68)]
+    if ([po.i_frame_type for po in pics] != [P.TYPE_IDR] + [P.TYPE_P] * n_p
+            or worst < 30.0 or n_slices != [4] * len(frames)
+            or any(rec["slices"] != bands for rec in recs)):
+        fail("encoder-slices output is wrong (frame types, slices per "
+             "frame, bands or PSNR < 30 dB)")
+    return launches
+
+
 def main() -> None:
     sys.path.insert(0, str(ROOT))
     try:
@@ -1122,23 +1273,37 @@ def main() -> None:
         fail("the port imported jax")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    setup()
-    kernels = kernel_checks()
-    card_vs_cpu()
-    launches, main_slots = main_path()
+    walls = {}
+
+    def phase(n, fn, *args):
+        """Run phase n and print its wall, the host's clock."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        walls[n] = time.perf_counter() - t0
+        print(f"phase {n} ({fn.__name__}) wall {walls[n]:.1f} s")
+        return out
+    phase(1, setup)
+    kernels = phase(2, kernel_checks)
+    phase(3, card_vs_cpu)
+    launches, main_slots = phase(4, main_path)
     # K4 runs only on the partition path, K5a / K5b / K6 only on their
     # deblock routes: their counts come from phases 5 and 6
-    launches["sad_surfaces_8x8"] = faster_path()["sad_surfaces_8x8"]
-    routed = routes_path(main_slots)
+    launches["sad_surfaces_8x8"] = phase(5, faster_path)["sad_surfaces_8x8"]
+    routed = phase(6, routes_path, main_slots)
     for k in ("deblock_wave_luma", "deblock_wave_chroma", "filter_regions"):
         launches[k] = routed[k]
-    v2_path()
+    phase(7, v2_path)
     # the S = 1 records are held to phase 8's launches
-    encoder_launches = encoder_path()
-    encoder_cbr_path()
-    refs_launches = encoder_refs_path()
+    encoder_launches = phase(8, encoder_path)
+    phase(9, encoder_cbr_path)
+    refs_launches = phase(10, encoder_refs_path)
+    slices_launches = phase(11, encoder_slices_path)
+    print("phase walls s: " + " ".join(f"{n}:{w:.1f}"
+                                       for n, w in walls.items())
+          + f" total {sum(walls.values()):.1f}")
     for k in kernels:
         k["launches"] = (refs_launches if "refs]" in k["name"]
+                         else slices_launches if "bands]" in k["name"]
                          else encoder_launches if k["streams"] == 1
                          else launches)[k["name"].split("[")[0]]
     if "jax" in sys.modules:

@@ -307,3 +307,15 @@ def test_overflow_raises():
     be.encode_batch(pics)
     with pytest.raises(RuntimeError, match="device CAVLC overflow"):
         be.encode_batch(None)
+
+
+def test_profiled_batch_encoder_writes_the_same_bytes(encoded):
+    """profile=True (a device sync and a clock read at each stage) writes
+    the unprofiled run's streams and summary, and records each slot's
+    stage split."""
+    (streams, _, summary), *_ = encoded
+    be = xtt.BatchEncoder(_params(), S, device="cpu", profile=True)
+    got, _, got_summary = _run(be, [_clip(11 + s) for s in range(S)])
+    assert got == streams and got_summary == summary
+    assert len(be.slot_times) == N
+    assert all(t["encode"] > 0 for _, t in be.slot_times)

@@ -38,7 +38,8 @@ from torch_jaxref import light_xla
 from x264dsp_tpu import params as P
 from x264dsp_tpu_torch.encoder import core as TC
 from x264dsp_tpu_torch.tools.mainpath import (ENCODER_FORCED, cabac_twin,
-                                              encode_clip, encoder_cqp_param,
+                                              encode_clip, encode_diff,
+                                              encoder_cqp_param,
                                               encoder_param, scene_cut_clip)
 
 REPO = Path(__file__).resolve().parent.parent
@@ -290,29 +291,6 @@ def test_torch_picture_gives_numpy_bytes(frames, port_runs):
         np.testing.assert_array_equal(g.v, w.v)
 
 
-REFUSED = {
-    "slice count": lambda p: setattr(p, "i_slice_count", 2),
-    "slice max mbs": lambda p: setattr(p, "i_slice_max_mbs", 4),
-    "slice max size": lambda p: setattr(p, "i_slice_max_size", 400),
-    "intra refresh": lambda p: setattr(p, "b_intra_refresh", 1),
-}
-FEATURE = {"slice count": "slice", "slice max mbs": "slice",
-           "slice max size": "slice", "intra refresh": "intra refresh"}
-
-
-@pytest.mark.parametrize("name", list(REFUSED))
-def test_unported_settings_raise(name):
-    """(g) every setting of the JAX Encoder that the port does not take
-    (the multi-slice settings and intra refresh) raises ValidationError
-    naming the feature; the JAX Encoder takes it."""
-    pj, pt = _default(xt), _default(xtt)
-    REFUSED[name](pj)
-    REFUSED[name](pt)
-    xt.Encoder(pj)
-    with pytest.raises(xtt.ValidationError, match=FEATURE[name]):
-        xtt.Encoder(pt, device="cpu")
-
-
 def test_cuda_device_without_gpu_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -350,3 +328,17 @@ def test_ssim_matches_jax():
     gs, gc = tssim(torch.from_numpy(a), torch.from_numpy(b))
     assert gc == wc
     assert float(gs) == pytest.approx(float(ws), rel=1e-6)
+
+
+@pytest.mark.parametrize("name", ["a", "b"])
+def test_profiled_encoder_writes_the_same_bytes(frames, port_runs, name):
+    """profile=True (a device sync and a clock read at each stage) writes
+    the unprofiled run's NALs, pic_out and summary for (a) and (b), and
+    records each frame's stage split."""
+    make, forced = CASES[name]
+    enc = xtt.Encoder(make(xtt), device="cpu", profile=True)
+    run = encode_clip(enc, frames, forced, xtt.Picture)
+    assert encode_diff(run, port_runs[name]) is None
+    times = enc._core.frame_times
+    assert len(times) == N
+    assert all(t["encode"] > 0 for _, t in times)

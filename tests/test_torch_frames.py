@@ -151,22 +151,47 @@ class _HeaderState:
         return TC.deblock_enabled(self.param, qp)
 
 
-@pytest.mark.parametrize("slice_type,qp,idr,a0", [
-    (P.SLICE_TYPE_I, 23, 0, 0), (P.SLICE_TYPE_I, 12, 7, -2),
-    (P.SLICE_TYPE_P, 26, -1, 0), (P.SLICE_TYPE_P, 8, -1, -2),
-    (P.SLICE_TYPE_P, 40, -1, 3)])
-def test_slice_header_bytes_match_jax(slice_type, qp, idr, a0):
+def _header_case(slice_type, qp, idr, a0, first_mb=0, cabac=0,
+                 active=None):
+    """A case of test_slice_header_bytes_match_jax; the BatchEncoder's
+    cases keep their ids."""
+    args = (slice_type, qp, idr, a0, first_mb, cabac, active)
+    if not first_mb:
+        return pytest.param(*args, id=f"{slice_type}-{qp}-{idr}-{a0}")
+    return pytest.param(*args, id=f"first_mb{first_mb}-{slice_type}-{qp}"
+                        f"{'-cabac' if cabac else ''}"
+                        f"{'-reorder' if active else ''}")
+
+
+@pytest.mark.parametrize("slice_type,qp,idr,a0,first_mb,cabac,active", [
+    _header_case(P.SLICE_TYPE_I, 23, 0, 0),
+    _header_case(P.SLICE_TYPE_I, 12, 7, -2),
+    _header_case(P.SLICE_TYPE_P, 26, -1, 0),
+    _header_case(P.SLICE_TYPE_P, 8, -1, -2),
+    _header_case(P.SLICE_TYPE_P, 40, -1, 3),
+    _header_case(P.SLICE_TYPE_I, 23, 3, 0, first_mb=8),
+    _header_case(P.SLICE_TYPE_P, 26, -1, 0, first_mb=12),
+    _header_case(P.SLICE_TYPE_P, 26, -1, 0, first_mb=20, cabac=1),
+    _header_case(P.SLICE_TYPE_P, 30, -1, 0, first_mb=4, active=[3, 1])])
+def test_slice_header_bytes_match_jax(slice_type, qp, idr, a0, first_mb,
+                                      cabac, active):
     """The copied slice-header writer emits the JAX writer's bits in the
-    BatchEncoder's cases (CAVLC, one reference, deblock on and off)."""
+    BatchEncoder's cases (CAVLC, one reference, deblock on and off), and
+    for a slice from MB first_mb of a multi-slice frame: I, P, CABAC P and
+    a P slice whose two active references are reordered."""
     p = P.param_default()
     p.i_width, p.i_height = W, H
-    p.b_cabac = 0
+    p.b_cabac = cabac
     p.i_deblocking_filter_alphac0 = a0
     st = _HeaderState(p, frame_num=5)
+    n_ref = 1
+    if active:
+        st._ref_reorder, st._active_refs, n_ref = True, active, len(active)
     bw_t, bw_j = BitWriter(), BitWriter()
-    TC.write_slice_header_common(st, bw_t, slice_type, qp, idr)
+    TC.write_slice_header_common(st, bw_t, slice_type, qp, idr, n_ref,
+                                 first_mb)
     JC.EncoderCore._write_slice_header_common(st, bw_j, slice_type, qp, idr,
-                                              n_ref=1)
+                                              n_ref=n_ref, first_mb=first_mb)
     assert bw_t.get_unaligned() == bw_j.get_unaligned()
 
 

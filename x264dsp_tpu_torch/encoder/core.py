@@ -19,9 +19,12 @@ frame step) and VBV (the row-VBV walk, the VBV re-encode, the HRD SEIs
 and the CBR filler NAL), CAVLC packed on the device or CABAC written by
 the host C++ writer from one pull of the frame's syntax; up to REF_MAX
 references in a DPB that skips corrupt frames (recovery path (c)) and
-orders frame packing 5's views, the scaling lists, noise reduction, and
-the CAVLC overflow re-encode (recovery path (a)) whose frames the host
-C++ CAVLC writers write.
+orders frame packing 5's views, the scaling lists, noise reduction, the
+CAVLC overflow re-encode (recovery path (a)) whose frames the host C++
+CAVLC writers write, and multi-slice frames (i_slice_count,
+i_slice_max_mbs, i_slice_max_size): MB-row bands encoded as independent
+frames, the bands of one height as the streams of one frame-step call,
+deblocked as one frame and written one NAL each by the host writers.
 
 The host helpers below are JAX-free copies of their namesakes in
 x264dsp_tpu/encoder/core.py (which imports JAX), each marked with its
@@ -127,17 +130,17 @@ def deblock_enabled(param, qp: int) -> bool:
 
 
 def write_slice_header_common(enc, bw, slice_type, qp, idr_pic_id,
-                              n_ref: int = 1):
+                              n_ref: int = 1, first_mb: int = 0):
     """Copy of core.py:1857-1902 EncoderCore._write_slice_header_common
     (x264_slice_header_write, encoder.c:1047-1196), duck-typed on `enc`
     (param, sps, pps, frame_num; an Encoder's _ref_reorder and
-    _active_refs): one slice from MB 0, n_ref active references (the
+    _active_refs): a slice from MB first_mb, n_ref active references (the
     num_ref_idx override where the PPS default differs), the
     ref_pic_list_modification of the active references' frame_nums where
     a corrupt reference was skipped or the order is not the default, and
     cabac_init_idc on a CABAC P slice."""
     p = enc.param
-    bw.write_ue(0)                      # first_mb_in_slice
+    bw.write_ue(first_mb)               # first_mb_in_slice
     bw.write_ue(slice_type + 5)
     bw.write_ue(enc.pps.i_id)
     bw.write(enc.sps.i_log2_max_frame_num,
@@ -553,7 +556,6 @@ class EncoderCore:
         self.mb_w = self.sps.i_mb_width
         self.mb_h = self.sps.i_mb_height
         self.rc = RateControl(p, self.mb_w * self.mb_h)
-        self._refuse_unported()
         self.device = resolve_device(device)
         self.slicetype = SlicetypeDecider(p)
         # lookahead queue (core.py:363-371, lookahead.c:59-115): under VBV
@@ -612,20 +614,6 @@ class EncoderCore:
         # the re-encode decisions). A frame encoded more than once sums
         # its encodes' stages
         self.frame_times = []
-
-    def _refuse_unported(self):
-        """The JAX Encoder's settings that the port does not take yet:
-        each raises ValidationError naming the missing feature."""
-        p = self.param
-        refused = (
-            (max(1, p.i_slice_count) > 1 or p.i_slice_max_mbs
-             or p.i_slice_max_size, "more than one slice per frame "
-             "(i_slice_count, i_slice_max_mbs, i_slice_max_size)"),
-            (p.b_intra_refresh, "periodic intra refresh"))
-        for hit, feature in refused:
-            if hit:
-                raise P.ValidationError(
-                    f"{feature} is not ported to the PyTorch Encoder yet")
 
     # ------------------------------------------------------------------
     def headers(self) -> list[NAL]:
@@ -718,6 +706,99 @@ class EncoderCore:
             p.rc.i_qp_min, min(p.rc.i_qp_max, P.QP_MAX_SPEC)).to(
                 _I32).cpu().numpy()
 
+    def _slice_ranges(self) -> list:
+        """Copy of core.py:533-545 EncoderCore._slice_ranges: the frame's
+        slices as MB-row bands [(y0, y1)], i_slice_count of them, or more
+        where i_slice_max_mbs asks for it, at bounds round(i * mb_h / n)
+        (Python's round: halves to even)."""
+        p = self.param
+        n = max(1, p.i_slice_count)
+        if p.i_slice_max_mbs:
+            rows = max(1, p.i_slice_max_mbs // self.mb_w)
+            n = max(n, -(-self.mb_h // rows))
+        n = min(n, self.mb_h)
+        bounds = [round(i * self.mb_h / n) for i in range(n + 1)]
+        return [(bounds[i], bounds[i + 1]) for i in range(n)
+                if bounds[i + 1] > bounds[i]]
+
+    def _band_syn(self, syn, qp_mb, band):
+        """Copy of core.py:521-531 EncoderCore._band_syn: a host syntax
+        dict and QP grid cut to the MB rows of band (y0, y1), or the whole
+        frame when band is None. Returns (syntax, qp_mb, mb_h, first_mb)."""
+        if band is None:
+            return syn, qp_mb, self.mb_h, 0
+        y0, y1 = band
+        out = {k: v[y0:y1] for k, v in syn.items()
+               if hasattr(v, "shape") and len(v.shape) >= 2
+               and v.shape[0] == self.mb_h and v.shape[1] == self.mb_w}
+        qpb = None if qp_mb is None else qp_mb[y0:y1]
+        return out, qpb, y1 - y0, y0 * self.mb_w
+
+    def _encode_bands(self, slices, is_p, qp, planes, ref_planes, x, n_ref,
+                      nr_offset):
+        """The device encode of a frame of several slices (core.py
+        :937-1010, 1062-1098): each MB-row band is an independent frame of
+        its rows, so the frame step's row-0 unavailability is the
+        slice-boundary rule; the bands of one height run as the streams of
+        one encode_frame call. A P band reads its rows of the active
+        references' padded planes (ref_planes, each (ref4, refu, refv) with
+        a stream axis of 1, nearest first) with the real rows of its
+        neighbours, not an edge copy (:960-966). The bands' syntax and
+        recon are concatenated on the row axis and their noise-reduction
+        sums added; a P frame's deblock strengths are computed again on the
+        whole frame (deblocking crosses slice edges at idc 0,
+        common/deblock.c:341), an I frame's are the constant of
+        reference(). Returns the frame's device syntax dict (S = 1)."""
+        pad = MC.PAD_MC
+        fy, fu, fv = planes
+        by_height = defaultdict(list)
+        for i, (y0, y1) in enumerate(slices):
+            by_height[y1 - y0].append(i)
+
+        def crop(r, y0, y1):
+            return (r[0][:, :, y0 * 16:y1 * 16 + 2 * pad],
+                    r[1][:, y0 * 8:y1 * 8 + pad], r[2][:, y0 * 8:y1 * 8 + pad])
+
+        groups, where = [], [None] * len(slices)
+        for hb, idx in by_height.items():
+            rows = [slices[i] for i in idx]
+
+            def cat(f):
+                return torch.cat([f(y0, y1) for y0, y1 in rows])
+            refs = None
+            if is_p and n_ref == 1:
+                refs = tuple(cat(lambda y0, y1: crop(ref_planes[0], y0, y1)[i])
+                             for i in range(3))
+            elif is_p:
+                # (bands, n_ref, ...): the references after the stream axis
+                refs = tuple(torch.stack([
+                    torch.cat([crop(r, y0, y1)[i] for r in ref_planes])
+                    for y0, y1 in rows]) for i in range(3))
+            cfg = frame_cfg(self.param, self.mb_w, hb, qp, self._cap)
+            syn = encode_frame(
+                cfg, is_p, cat(lambda y0, y1: fy[None, y0 * 16:y1 * 16]),
+                cat(lambda y0, y1: fu[None, y0 * 8:y1 * 8]),
+                cat(lambda y0, y1: fv[None, y0 * 8:y1 * 8]), refs,
+                cat(lambda y0, y1: x["qp_mb"][:, y0:y1]),
+                cat(lambda y0, y1: x["lam"][:, y0:y1]), self.clock, n_ref,
+                nr_offset)
+            for j, i in enumerate(idx):
+                where[i] = (syn, j)
+            groups.append(syn)
+        out = {}
+        for k in groups[0]:
+            if k.startswith("nr_"):
+                out[k] = sum(g[k].sum(0, keepdim=True) for g in groups)
+            else:
+                out[k] = torch.cat([g[k][j:j + 1] for g, j in where], 1)
+        if is_p:
+            out["bs"], out["feo"] = inter_frame.compute_strengths_p(
+                inter_frame.blocks4_grid(out["luma_nnz"], self.mb_h,
+                                         self.mb_w),
+                out["cbp_luma"], out["cbp_chroma"], out["mv8"], self.mb_w,
+                self.mb_h, out["ref"])
+        return out
+
     def _valid_refs(self, st_idx: int) -> list:
         """The reference list of frame st_idx (core.py:821-833): the DPB
         less its corrupt entries (x264_reference_build, encoder.c:825-826),
@@ -733,14 +814,17 @@ class EncoderCore:
         return valid
 
     def _encode_frame(self, rec: dict, planned: list):
-        """core.py:816-1373 for one slice, in the JAX CPU path's order (its
+        """core.py:816-1373 in the JAX CPU path's order (its
         multi-dispatch flow, core.py:1100-1320): the active reference list
-        and the forced IDR when none is valid, the SEIs, the first encode,
-        the CAVLC overflow re-encode (recovery path (a), core.py
-        :1102-1147), the first write, up to 3 row-VBV passes, up to 8 VBV
-        re-encodes while the frame exceeds rc.frame_size_limit(), the
-        row predictors' update from the final encode, the noise-reduction
-        update, rc.end over every NAL and the CBR filler NAL."""
+        and the forced IDR when none is valid, the SEIs, the first encode
+        (of each slice band, _encode_bands), the CAVLC overflow re-encode
+        (recovery path (a), core.py:1102-1147), the first write, up to 3
+        row-VBV passes (one slice only), up to 16 i_slice_max_size passes
+        that split the bands over budget, up to 8 VBV re-encodes while the
+        frame's slices exceed rc.frame_size_limit(), the row predictors'
+        update from the final encode where its row bits cover the frame,
+        the noise-reduction update, rc.end over every NAL and the CBR
+        filler NAL."""
         p = self.param
         clock = self.clock
         pic, planes, st_idx = rec["pic"], rec["planes"], rec["st_idx"]
@@ -788,6 +872,12 @@ class EncoderCore:
             self.frame_num = 0
         idr_id = self.idr_pic_id if is_idr else -1
         cfg = frame_cfg(p, self.mb_w, self.mb_h, qp, self._cap)
+        slices = self._slice_ranges()
+        # the device packer writes a CAVLC frame of one slice and no size
+        # budget; the other frames are written by the host C++ writers, one
+        # slice per band (core.py:929, :1178-1205)
+        dev_pack = (not p.b_cabac and len(slices) == 1
+                    and not p.i_slice_max_size)
         refs = None
         if is_p and n_ref == 1:
             refs = active[0]["planes"]
@@ -802,32 +892,41 @@ class EncoderCore:
         n_skip = 0      # P_SKIP MBs counted by every write of the frame
 
         def encode_once(qp_mb):
-            """One device encode of the frame at the grid qp_mb; a CAVLC
-            frame also packs its payload on the device (dev: (payload,
-            stats vector, row bits), or None when the packer's overflow
-            flag is set or the bits pass the cap)."""
+            """One device encode of the frame, cut into the current slice
+            bands, at the grid qp_mb; a CAVLC frame of the device packer
+            also packs its payload (dev: (payload, stats vector, row bits),
+            or None when the packer's overflow flag is set or the bits pass
+            the cap, and for the host writers' frames)."""
             headers, x = slot_inputs(self, slice_type, [qp], idr_id,
                                      qp_mb[None], n_ref)
-            syn = encode_frame(cfg, is_p, *(a[None] for a in planes), refs,
-                               x["qp_mb"], x["lam"], clock, n_ref,
-                               nr_offset)
-            res = dict(syn=syn, x=x, headers=headers)
+            if len(slices) == 1:
+                syn = encode_frame(cfg, is_p, *(a[None] for a in planes),
+                                   refs, x["qp_mb"], x["lam"], clock, n_ref,
+                                   nr_offset)
+            else:
+                syn = self._encode_bands(slices, is_p, qp, planes,
+                                         [e["planes"] for e in active], x,
+                                         n_ref, nr_offset)
+            res = dict(syn=syn, x=x, headers=headers, slices=list(slices))
             if not p.b_cabac:
-                res["dev"] = self._pack_cavlc(cfg, slice_type, qp, syn, x,
-                                              headers, n_ref)
+                res["dev"] = (self._pack_cavlc(cfg, slice_type, qp, syn, x,
+                                               headers, n_ref)
+                              if dev_pack else None)
             return res
 
         def write(res, qp_mb):
-            """The slice payload of an encode, its MB-type counts added as
-            the JAX host writers add them at every write. A CABAC frame
+            """The slice payloads of an encode, one per band, its MB-type
+            counts added as the JAX host writers add them at every write;
+            the bits of each MB row only for a frame of one slice (the
+            band writers keep none, core.py:1712, :1920). A CABAC frame
             launches its reference half before the host writer runs, so
             the card filters while the host writes (a re-encode drops it
             and launches its own); a CAVLC frame's comes from the final
-            encode, its payload from the device packer or, where that
-            overflowed, from the host C++ CAVLC writers (core.py
-            :1180-1203)."""
+            encode, its payload from the device packer or from the host
+            C++ CAVLC writers (core.py:1180-1203)."""
             nonlocal n_skip
             syn, x = res["syn"], res["x"]
+            bands = [None] if len(res["slices"]) == 1 else res["slices"]
             if p.b_cabac:
                 host = pull_syntax(syn, SYN_CABAC_P if is_p else SYN_CABAC_I,
                                    1)[0]
@@ -836,18 +935,22 @@ class EncoderCore:
                     1, dtype=_I32, device=self.device))
                 res["ref"] = reference(cfg, is_p, syn, x["qp_mb"],
                                        x["slice_qp"], clock)
-                res["payload"], counts, res["row_bits"] = \
-                    self._write_slice_cabac(host, slice_type, qp, idr_id,
-                                            qp_mb, n_ref)
+                out = [self._write_slice_cabac(host, slice_type, qp, idr_id,
+                                               qp_mb, n_ref, band)
+                       for band in bands]
+                res["payloads"] = [o[0] for o in out]
+                res["row_bits"] = out[0][2]
                 clock.mark("cabac")
-                n_skip += self._count_mb_types(slice_type, counts=counts)
+                n_skip += self._count_mb_types(
+                    slice_type, counts=np.sum([o[1] for o in out], 0))
             elif res["dev"] is not None:
-                res["payload"], res["vec"], res["row_bits"] = res["dev"]
+                payload, res["vec"], res["row_bits"] = res["dev"]
+                res["payloads"] = [payload]
                 n_skip += self._count_mb_types(slice_type, vec=res["vec"])
             else:
-                res["payload"], res["vec"], res["row_bits"] = \
-                    self._write_slice_cavlc_host(res, slice_type, qp, qp_mb,
-                                                 n_ref)
+                res["payloads"], res["vec"], res["row_bits"] = \
+                    self._write_slice_cavlc_host(res, slice_type, qp, idr_id,
+                                                 qp_mb, n_ref, bands)
                 n_skip += self._count_mb_types(slice_type, vec=res["vec"])
 
         nals, bp = [], None
@@ -896,14 +999,14 @@ class EncoderCore:
                 res = encode_once(qp_mb)
                 n_ov += 1
         write(res, qp_mb)
-        n_row, n_frame = 0, 0
-        if self.rc.b_vbv:
+        n_row, n_split, n_frame = 0, 0, 0
+        row_satd = rec["row_costs"]
+        if self.rc.b_vbv and len(slices) == 1:
             qp_hi = min(p.rc.i_qp_max, P.QP_MAX_SPEC)
             # per-row VBV (x264_ratecontrol_mb, ratecontrol.c:599-780): the
             # end-of-row QP-step walk over the measured row bits, a
             # re-encode with the new ramp, to a fixed point (core.py
-            # :1217-1234)
-            row_satd = rec["row_costs"]
+            # :1217-1234); a frame of one slice only
             ramp = np.full(self.mb_h, qp, np.int32)
             for _ in range(3):
                 new_ramp = self.rc.row_vbv_adjust(slice_type, ramp,
@@ -917,11 +1020,40 @@ class EncoderCore:
                 res = encode_once(qp_mb)
                 write(res, qp_mb)
                 n_row += 1
+        nal_type = P.NAL_SLICE_IDR if is_idr else P.NAL_SLICE
+        if p.i_slice_max_size > 0:
+            # i_slice_max_size (x264.h:660): a band whose NAL (start code,
+            # header and escapes included) passes the budget is split in
+            # proportion, rows at a time, and the frame encoded and written
+            # again; a single row over budget stays as it is (core.py
+            # :1236-1264)
+            limit = p.i_slice_max_size
+            for _ in range(16):
+                new, split = [], False
+                for (y0, y1), pl in zip(slices, res["payloads"]):
+                    rows = y1 - y0
+                    size = len(nal_unit(nal_type, P.NAL_PRIORITY_HIGHEST, pl))
+                    if size <= limit or rows == 1:
+                        new.append((y0, y1))
+                        continue
+                    parts = min(rows, -(-size // limit) + 1)
+                    bounds = [y0 + (rows * i) // parts
+                              for i in range(parts)] + [y1]
+                    new.extend((a, b) for a, b in zip(bounds, bounds[1:])
+                               if a < b)
+                    split = True
+                if not split:
+                    break
+                slices[:] = new
+                res = encode_once(qp_mb)
+                write(res, qp_mb)
+                n_split += 1
+        if self.rc.b_vbv:
             # recovery path (b): a frame past the MinCR / VBV ceiling is
-            # encoded again at a QP raised by the overshoot (core.py
-            # :1270-1286)
+            # encoded again at a QP raised by the overshoot, measured on
+            # all its slices (core.py:1270-1286)
             for _ in range(8):
-                bits = len(res["payload"]) * 8
+                bits = sum(len(pl) for pl in res["payloads"]) * 8
                 limit = self.rc.frame_size_limit()
                 clock.mark("vbv")
                 if bits <= limit or qp_mb.min() >= P.QP_MAX_SPEC:
@@ -932,8 +1064,10 @@ class EncoderCore:
                 write(res, qp_mb)
                 n_frame += 1
             # the row predictors learn from the final encode (:675-681)
-            self.rc.row_vbv_commit(slice_type, qp_mb.mean(axis=1),
-                                   res["row_bits"], row_satd)
+            # where its row bits cover the frame (one slice)
+            if res["row_bits"] is not None:
+                self.rc.row_vbv_commit(slice_type, qp_mb.mean(axis=1),
+                                       res["row_bits"], row_satd)
             self._row_bits = res["row_bits"]
             clock.mark("vbv")
         self._last_qp_mb = qp_mb
@@ -942,10 +1076,9 @@ class EncoderCore:
             clock)
         vec = res["vec"] if "vec" in res else res["stats"][0].cpu().numpy()
 
-        nal_type = P.NAL_SLICE_IDR if is_idr else P.NAL_SLICE
-        nals.append(NAL(nal_type, P.NAL_PRIORITY_HIGHEST,
-                        nal_unit(nal_type, P.NAL_PRIORITY_HIGHEST,
-                                 res["payload"])))
+        for pl in res["payloads"]:
+            nals.append(NAL(nal_type, P.NAL_PRIORITY_HIGHEST,
+                            nal_unit(nal_type, P.NAL_PRIORITY_HIGHEST, pl)))
 
         if is_idr:
             self.idr_pic_id = (self.idr_pic_id + 1) % 65536
@@ -956,8 +1089,10 @@ class EncoderCore:
         if nr_offset is not None:
             self._nr_update(res["syn"])
         filler = self._add_stats(pic, slice_type, qp_mb, nals, vec, n_skip)
-        self.last_frame = dict(encodes=1 + n_ov + n_row + n_frame,
+        self.last_frame = dict(encodes=1 + n_ov + n_row + n_split + n_frame,
                                overflow=n_ov, row_vbv=n_row,
+                               slices=list(res["slices"]),
+                               max_size_passes=n_split,
                                reencodes=n_frame, qp_min=int(qp_mb.min()),
                                qp_max=int(qp_mb.max()), filler=filler,
                                bp=bp, n_ref=n_ref,
@@ -998,32 +1133,46 @@ class EncoderCore:
         row_bits = np.diff(rows[0], prepend=(len(hb) - 1) * 8 + hn)
         return raw[0, :nbytes[0]].tobytes(), vec, row_bits
 
-    def _write_slice_cavlc_host(self, res, slice_type, qp, qp_mb, n_ref):
-        """A CAVLC frame that the device packer could not pack, written by
-        the host C++ CAVLC writers (core.py:1697-1727, 2246-2278) on its
-        pulled syntax (res["host"], pulled here if the overflow loop has
-        not). Returns (payload, stats vector with the writer's P_SKIP
-        count, the bits of each MB row, the first without the slice
-        header)."""
+    def _write_slice_cavlc_host(self, res, slice_type, qp, idr_pic_id,
+                                qp_mb, n_ref, bands):
+        """A CAVLC frame that the device packer does not write (a packer
+        overflow, several slices, a slice size budget), written by the
+        host C++ CAVLC writers (core.py:1697-1727, 2246-2278) on its pulled
+        syntax (res["host"], pulled here if the overflow loop has not), one
+        slice per band (None: the whole frame). Returns (payloads, stats
+        vector with the writers' P_SKIP count, the bits of each MB row of a
+        whole-frame slice, the first without the slice header, or None)."""
         syn = res["syn"]
         is_p = slice_type == P.SLICE_TYPE_P
         if "host" not in res:
             res["host"] = pull_syntax(syn, SYN_P if is_p else SYN_I, 1)[0]
         vec = frame_stats(syn, is_p, torch.zeros(
             1, dtype=_I32, device=self.device))[0].cpu().numpy()
-        header = res["headers"][0]
-        rb = np.zeros(self.mb_h, np.int64)
+        payloads, n_skip, row_bits = [], 0, None
+        for band in bands:
+            host, qpb, mb_h, first_mb = self._band_syn(res["host"], qp_mb,
+                                                       band)
+            bw = BitWriter()
+            write_slice_header_common(self, bw, slice_type, qp, idr_pic_id,
+                                      n_ref, first_mb)
+            header = bw.get_unaligned()
+            rb = np.zeros(mb_h, np.int64) if band is None else None
+            if is_p:
+                payload, skips = native.write_slice_p(
+                    header, self.mb_w, mb_h, qp, host, qp_mb=qpb,
+                    n_ref=n_ref, row_bits=rb)
+                n_skip += skips
+            else:
+                payload = native.write_slice_i(header, self.mb_w, mb_h, qp,
+                                               host, qp_mb=qpb, row_bits=rb)
+            payloads.append(payload)
+            if rb is not None:
+                hb, hn = header
+                row_bits = np.diff(rb, prepend=(len(hb) - 1) * 8 + hn)
         if is_p:
-            payload, vec[0] = native.write_slice_p(
-                header, self.mb_w, self.mb_h, qp, res["host"], qp_mb=qp_mb,
-                n_ref=n_ref, row_bits=rb)
-        else:
-            payload = native.write_slice_i(header, self.mb_w, self.mb_h, qp,
-                                           res["host"], qp_mb=qp_mb,
-                                           row_bits=rb)
+            vec[0] = n_skip
         self.clock.mark("cavlc_host")
-        hb, hn = header
-        return payload, vec, np.diff(rb, prepend=(len(hb) - 1) * 8 + hn)
+        return payloads, vec, row_bits
 
     def _detect_cavlc_overflow(self, syn, slice_type) -> np.ndarray:
         """Copy of core.py:553-602 EncoderCore._detect_cavlc_overflow:
@@ -1102,24 +1251,27 @@ class EncoderCore:
         nr["offset"][:, 0] = 0
 
     def _write_slice_cabac(self, syn, slice_type, qp, idr_pic_id, qp_mb,
-                           n_ref=1):
-        """core.py:1904-1941 on the native writer: the slice header, the
+                           n_ref=1, band=None):
+        """core.py:1904-1941 on the native writer: the slice of band (y0,
+        y1) of the host syntax syn (None: the whole frame), its header, the
         cabac_alignment_one_bits, then the C++ CABAC body with frame_idx
         the input frame counter, at the per-MB QPs qp_mb (host (mb_h,
         mb_w)) with n_ref active references. Returns (payload, MB-type
-        counts, the bits of each MB row: x264_cabac_pos starts at 1 bit,
-        so the first row's count holds the slice's opening bit, core.py
-        :1926-1928)."""
+        counts, the bits of each MB row of a whole-frame slice, or None:
+        x264_cabac_pos starts at 1 bit, so the first row's count holds the
+        slice's opening bit, core.py:1926-1928)."""
+        syn, qp_mb, mb_h, first_mb = self._band_syn(syn, qp_mb, band)
         bw = BitWriter()
         write_slice_header_common(self, bw, slice_type, qp, idr_pic_id,
-                                  n_ref)
+                                  n_ref, first_mb)
         bw.align_1()
-        rb = np.zeros(self.mb_h, np.int64)
+        rb = np.zeros(mb_h, np.int64) if band is None else None
         payload, counts = native.write_slice_cabac(
-            bw.get_bytes(), self.mb_w, self.mb_h, qp, self.i_frame,
+            bw.get_bytes(), self.mb_w, mb_h, qp, self.i_frame,
             slice_type == P.SLICE_TYPE_P, syn, qp_mb=qp_mb, n_ref=n_ref,
             row_bits=rb)
-        return payload, counts, np.diff(rb, prepend=1)
+        return payload, counts, None if rb is None else np.diff(rb,
+                                                                prepend=1)
 
     def _update_reference(self, planes, recon, is_idr):
         """Commit the frame's reference planes to the DPB (core.py:730-766;

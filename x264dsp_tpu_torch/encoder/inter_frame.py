@@ -899,6 +899,15 @@ def mv8_to_mv4(mv8, mb_w: int, mb_h: int):
     return g.repeat_interleave(2, 1).repeat_interleave(2, 2)
 
 
+def blocks4_grid(vals, mb_h: int, mb_w: int):
+    """(S, mb_h, mb_w, 16) per-4x4-block values in coding order -> the
+    (S, 4mb_h, 4mb_w) block grid (ops/mcgather.py:307 blocks4_grid; the
+    inverse of residual_plane.luma_nnz_coding)."""
+    S = vals.shape[0]
+    t = vals.reshape(S, mb_h, mb_w, 2, 2, 2, 2).permute(0, 1, 3, 5, 2, 4, 6)
+    return t.reshape(S, mb_h * 4, mb_w * 4)
+
+
 def compute_strengths_p(nnz_bg, cbp_luma, cbp_chroma, mv8, mb_w, mb_h,
                         ref_mb):
     """Deblock strengths of a P frame (x264_macroblock_deblock_strength,

@@ -27,7 +27,12 @@
   forced extreme frame (REFS_MARKS, REFS_FORCED, extreme_frame) that
   hold the multi-ref DPB, recovery paths (a) and (c) and frame packing
   5 to the JAX Encoder (tests/test_torch_refs.py) and the card to the
-  CPU.
+  CPU;
+- encoder-slices: the Encoder with several slices per frame (Blu-ray
+  authoring's --slices 4 at 1080p) and with periodic intra refresh, and
+  the small clip and the settings (SLICE_CASES, encoder_slices_param,
+  slices_clip) that hold them to the JAX Encoder
+  (tests/test_torch_slices.py) and the card to the CPU.
 
 The parameter helpers set their fields on ``p`` when given (any Param
 with the package's fields: the tests pass the JAX package's so that both
@@ -39,7 +44,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..params import TYPE_I, TYPE_IDR
+from ..params import RC_ABR, TYPE_I, TYPE_IDR
 
 
 def main_path_param(w: int, h: int, qp: int = 26, keyint: int = 50, p=None):
@@ -206,6 +211,61 @@ def multiref_clip(w: int = 56, h: int = 40, n: int = 7, period: int = 3,
         frames.append((y.clip(0, 255).astype(np.uint8), u.astype(np.uint8),
                        v.astype(np.uint8)))
     frames.append(extreme_frame(w, h))
+    return frames
+
+
+# the multi-slice and intra-refresh settings at CQP 26 (encoder_slices_
+# param), name: {field: value}, a dotted field naming one of p.rc's; on a
+# 64x96 frame (4x6 MBs) each makes 3 bands of 2 MB rows
+SLICE_CASES = {
+    "count3-cavlc": {"i_slice_count": 3},
+    "count3-cabac": {"i_slice_count": 3, "b_cabac": 1},
+    "max-mbs8": {"i_slice_max_mbs": 8},
+    # tests/test_slices.py:101-108: the I frame's bands pass the budget
+    # and are split
+    "max-size400": {"i_slice_count": 3, "i_slice_max_size": 400},
+    # tests/test_intra_refresh.py:59-72: keyint applies to frame 0 only
+    "intra-refresh": {"b_intra_refresh": 1, "i_slice_count": 3,
+                      "i_keyint_max": 4, "i_scenecut_threshold": 0},
+    # a VBV tight enough that the I frame is encoded again
+    "vbv-slices": {"i_slice_count": 3, "rc.i_rc_method": RC_ABR,
+                   "rc.i_bitrate": 20, "rc.i_vbv_max_bitrate": 20,
+                   "rc.i_vbv_buffer_size": 2},
+    # 2 references: a P frame past the first reads each band's rows of
+    # both (the stacked crops, K4)
+    "refs2": {"i_slice_count": 3, "i_frame_reference": 2},
+}
+
+
+def encoder_slices_param(w: int, h: int, name: str, p=None):
+    """param_default() at CQP 26 under CAVLC with the settings of
+    SLICE_CASES[name]."""
+    from .. import params as P
+    p = encoder_param(w, h, p)
+    p.b_cabac = 0
+    p.rc.i_rc_method = P.RC_CQP
+    p.rc.i_qp_constant = 26
+    for k, v in SLICE_CASES[name].items():
+        obj = p.rc if k.startswith("rc.") else p
+        setattr(obj, k.removeprefix("rc."), v)
+    return p
+
+
+def slices_clip(w: int = 64, h: int = 96, n: int = 5, seed: int = 5):
+    """n frames of (y, u, v) uint8 numpy planes: a moving sinusoid texture
+    with light noise (tests/test_slices.py:15 _clip), detailed enough that
+    the I frame's slices pass 400 bytes at QP 26."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    frames = []
+    for t in range(n):
+        y = (120 + 60 * np.sin((xx + 3 * t) / 9.0) * np.cos(yy / 7.0)
+             + rng.normal(0, 3, (h, w))).clip(0, 255).astype(np.uint8)
+        u = (128 + 30 * np.sin((xx[::2, ::2] + t) / 5.0)).clip(
+            0, 255).astype(np.uint8)
+        v = (128 + 30 * np.cos(yy[::2, ::2] / 6.0)).clip(0, 255).astype(
+            np.uint8)
+        frames.append((y, u, v))
     return frames
 
 
