@@ -53,9 +53,12 @@ Phases (any failure exits non-zero):
      a tight VBV, 3 slices with 2 references (K4 on the stacked band
      crops)), the card's Encoder profiled (a device sync at each stage):
      the same checks, one slice NAL per band, and K1, K2a, K2b and K3
-     launched (K4 too with 2 references); and the CLI on the scene-cut clip as a 56x40 .yuv (under
+     launched (K4 too with 2 references); the CLI on the scene-cut clip as a 56x40 .yuv (under
      build/smoke/) with --device cuda against --device cpu: identical .264
-     bytes;
+     bytes; and the stream mesh (parallel/mesh.py): the I step and the P
+     pipeline (ESA) of 4 streams at 64x48 over a two-entry mesh of the
+     card (two cards when there are two) against a two-entry CPU mesh:
+     identical outputs;
   4. the main path: BatchEncoder at 1920x1088, S = 8, QP 26, keyint 50,
      CAVLC, DIA, subme 1, one I slot and four P slots of a synthetic clip;
      prints fps and the per-stage split, and holds the device payload of
@@ -84,6 +87,11 @@ Phases (any failure exits non-zero):
      CRF run's QP, whose pic_out must equal the CABAC run's, whose device
      CAVLC payload must equal the host C++ writers' and whose syntax,
      written by the C++ CABAC writer, must give the CABAC run's slices;
+     and the device CABAC front half on the twin's two frames:
+     residual_ops_frame on the card (cap_ops 1 << 22) equal to the CPU's,
+     and the C++ CABAC writer's bytes with its op stream equal to its own
+     binarization's, with the card's ms and the writer's host ms both
+     ways;
   9. encoder-cbr: the Encoder as a live stream into an ingest server at
      1920x1080, 30 fps, keyint 60: CBR at 6000 kbit/s (ABR with VBV max
      rate = buffer = 6000 kbit, NAL HRD CBR), variance AQ at strength 1.0,
@@ -116,7 +124,18 @@ Phases (any failure exits non-zero):
      the slice edges. Requires K1, K2a, K2b and K3 launches, 4 bands of
      17 MB rows and 4 slice NALs on every frame and a luma PSNR of 30 dB
      or more.
-Phases 4 to 11 each set the launch counters to 0 just before they drive
+ 12. multichip: the stream mesh (parallel/mesh.py) over every card torch
+     sees when there are two or more, else over cuda:0 twice (logical
+     shards of one card): dryrun_multichip (parallel/dryrun.py) at QCIF,
+     one stream per shard (a sharded I step, the sharded P pipeline on the
+     ESA wavefront, the device CAVLC packer per shard byte-identical to a
+     single-device twin, the C++ CABAC writer per stream, the Encoder with
+     2 slices under row VBV), then the P pipeline (ESA) at 1920x1088, S =
+     8, on phase 4's clip (frame 1 against the reference planes of frame
+     0's source) sharded over the mesh and unsharded on cuda:0: every
+     output and reference plane equal; each part's wall and launches.
+     Requires K4, K2a, K2b and K3 launches in the sharded run.
+Phases 4 to 12 each set the launch counters to 0 just before they drive
 the encoder and read them just after; a kernel of the path that was
 never launched fails the run. The line before the last is the kernels'
 JSON record; the last line is {"ok": true, "device": {...}}. Imports
@@ -707,6 +726,7 @@ def encoder_card_vs_cpu():
                  "CABAC), or no MB took a reference past the nearest")
     slices_card_vs_cpu()
     cli_card_vs_cpu(frames)
+    mesh_card_vs_cpu()
 
 
 def slices_card_vs_cpu():
@@ -788,6 +808,53 @@ def cli_card_vs_cpu(frames):
           f"{len(out['cuda'])} bytes, identical={out['cuda'] == out['cpu']}")
     if out["cuda"] != out["cpu"] or not out["cpu"]:
         fail("the CLI's .264 on the card differs from the CPU's")
+
+
+def mesh_devices() -> list:
+    """Every card torch sees when there are two or more, else cuda:0
+    twice (logical shards of one card)."""
+    import torch
+    n = torch.cuda.device_count()
+    return [f"cuda:{i}" for i in range(n)] if n >= 2 else ["cuda:0"] * 2
+
+
+def mesh_card_vs_cpu():
+    """Phase 3, the stream mesh (x264dsp_tpu_torch/parallel/mesh.py): the
+    I step and the P pipeline (ESA) of 4 streams at 64x48 over a
+    two-entry mesh of the card against a two-entry CPU mesh: identical
+    outputs, every key and the three new reference planes."""
+    import torch
+    from x264dsp_tpu_torch.ops import mc as MC
+    from x264dsp_tpu_torch.parallel import dryrun as D
+    from x264dsp_tpu_torch.parallel import mesh as M
+    w, h, S = 64, 48, 4
+    clips = [small_clip(w, h, 2, 21 + s) for s in range(S)]
+    frames = [tuple(np.stack([clips[s][t][i] for s in range(S)])
+                    for i in range(3)) for t in (0, 1)]
+    devs = mesh_devices()[:2]
+    out = {}
+    for label, mesh_devs in (("card", devs), ("cpu", ["cpu"] * 2)):
+        mesh = M.make_stream_mesh(mesh_devs)
+        ts = M.shard_streams(mesh, *(torch.from_numpy(a)
+                                     for a in frames[0] + frames[1]))
+        i_out = M.encode_i_frames_batched(*ts[:3], D.QP, D.QPC, D.LAMBDA,
+                                          w // 16, h // 16, True, True)
+        refs = [M.map_streams(f, i_out[k]) for f, k in (
+            (MC.make_ref_planes, "recon_y"), (MC.pad_chroma, "recon_u"),
+            (MC.pad_chroma, "recon_v"))]
+        p_out, new_refs = M.encode_p_pipeline_batched(
+            *ts[3:], *refs, D.QP, D.QPC, D.LAMBDA, w // 16, h // 16,
+            D.ME_RANGE, D.MV_RANGE, True)
+        out[label] = {**{f"I {k}": D.host(v) for k, v in i_out.items()},
+                      **{f"P {k}": D.host(v) for k, v in p_out.items()},
+                      **{f"ref{i}": D.host(r) for i, r in enumerate(new_refs)}}
+    differ = [k for k in out["cpu"] if k not in out["card"]
+              or not np.array_equal(out["card"][k], out["cpu"][k])]
+    print(f"card vs CPU, stream mesh {w}x{h} S={S} over {devs} vs 2 x "
+          f"cpu: I step + P pipeline (ESA), {len(out['cpu'])} outputs, "
+          f"identical={not differ}")
+    if differ:
+        fail(f"the card's mesh differs from the CPU's: {differ}")
 
 
 def psnr(a, b) -> float:
@@ -1051,15 +1118,85 @@ def encoder_path(n_p: int = 3):
     # keeps CRF: a CQP stream's QPs are clipped to qp_constant -3..+3
     # (validate_parameters), narrower than the CRF run's I and P QPs may
     # lie
+    kept = []
     try:
-        bits = cabac_twin(param, run, frames, 2)
+        bits = cabac_twin(param, run, frames, 2, keep=kept)
     except RuntimeError as e:
         fail(f"encoder twin: {e}")
     print(f"encoder twin (CAVLC) frames 0-1 at QPs "
           f"{[po.i_frame_qp for po in pics[:2]]}: type, QP and recon == "
           f"CABAC run's; device payload == host C++ writers (bits {bits}); "
           f"C++ CABAC writer on its syntax == CABAC run's slice NALs")
+    cabac_front_half(kept, W, h)
     return launches
+
+
+def cabac_front_half(kept, w, h, reps: int = 5):
+    """Phase 8, the device CABAC front half (entropy/cabac_device.py) on
+    the twin's frames: residual_ops_frame on the card (cap_ops 1 << 22)
+    must equal the CPU's, and the C++ CABAC writer must write the same
+    bytes and MB counts with the op stream as without it. Prints the
+    card's ms (CUDA events) and peak memory, the pull of the ops, and the
+    writer's host ms both ways."""
+    import torch
+    from x264dsp_tpu_torch.entropy import native
+    from x264dsp_tpu_torch.entropy.cabac_device import residual_ops_frame
+    mb_w, mb_h = (w + 15) // 16, (h + 15) // 16
+    for t, k in enumerate(kept):
+        syn, is_p = k["syn"], k["is_p"]
+        dev = syn["luma_levels"].device
+        dc = torch.zeros((mb_h, mb_w, 16), dtype=torch.int32, device=dev)
+        args = [syn[n][0] if n in syn else dc for n in (
+            "luma_levels", "luma_dc_levels", "chroma_dc_levels",
+            "chroma_ac_levels")]
+        args.append(torch.zeros((mb_h, mb_w), dtype=torch.bool, device=dev)
+                    if is_p else syn["mb_type"][0] == 0)
+
+        def front():
+            return residual_ops_frame(*args, mb_h, mb_w, 1 << 22)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = time_cuda(front, reps)
+        peak = torch.cuda.max_memory_allocated()
+        ops, off, ov = front()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        total = int(off[-1])
+        ops_np, off_np = ops[:total].cpu().numpy(), off.cpu().numpy()
+        pull_ms = (time.perf_counter() - t0) * 1e3
+        cpu = residual_ops_frame(*(a.cpu() for a in args), mb_h, mb_w,
+                                 1 << 22)
+        if not all(torch.equal(a.cpu(), b) for a, b in zip((ops, off, ov),
+                                                           cpu)):
+            fail(f"CABAC front half, frame {t}: the card's ops differ from "
+                 "the CPU's")
+        if bool(ov):
+            fail(f"CABAC front half, frame {t}: op stream overflow")
+        qp_mb = np.full((mb_h, mb_w), k["qp"], np.int32)
+
+        def write(**kw):
+            return native.write_slice_cabac(bytes([0x40]), mb_w, mb_h,
+                                            k["qp"], t, is_p, k["host"],
+                                            qp_mb=qp_mb, **kw)
+
+        def host_ms(**kw):
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                write(**kw)
+            return (time.perf_counter() - t0) / reps * 1e3
+        with_ops = {"res_ops": ops_np, "res_off": off_np}
+        want, got = write(), write(**with_ops)
+        full_ms, ops_ms = host_ms(), host_ms(**with_ops)
+        same = got[0] == want[0] and np.array_equal(got[1], want[1])
+        print(f"CABAC front half, frame {t} ({'IP'[is_p]}, QP {k['qp']}): "
+              f"residual_ops_frame {ms:.3f} ms on the card (peak "
+              f"{peak / 2**20:.0f} MiB), {total} residual bins == CPU's; "
+              f"ops pull {pull_ms:.2f} ms; C++ CABAC writer {full_ms:.2f} "
+              f"ms, with the ops {ops_ms:.2f} ms ({full_ms / ops_ms:.2f}x); "
+              f"{len(want[0])} bytes, identical={same}")
+        if not same:
+            fail(f"CABAC front half, frame {t}: the writer's bytes with the "
+                 "ops differ from its own binarization's")
 
 
 def encoder_cbr_path(n_slate: int = 4, n_clip: int = 5):
@@ -1257,6 +1394,77 @@ def encoder_slices_path(n_p: int = 2):
     return launches
 
 
+def multichip_path():
+    """Phase 12: the stream mesh, on every card torch sees if there are
+    two or more, else on cuda:0 twice (logical shards of one card). (a)
+    dryrun_multichip at QCIF with its byte-identity check; (b) the P
+    pipeline (ESA) at 1920x1088, S = 8, on phase 4's clip: frame 1 against
+    the reference planes of frame 0's source, sharded over the mesh and
+    unsharded on cuda:0; every output and the three new reference planes
+    must be equal. K4, K2a, K2b and K3 must launch in (b)'s sharded run."""
+    import torch
+    import x264dsp_tpu_torch as xtt
+    from x264dsp_tpu_torch.ops import mc as MC
+    from x264dsp_tpu_torch.parallel import dryrun as D
+    from x264dsp_tpu_torch.parallel import mesh as M
+    from x264dsp_tpu_torch.tools.mainpath import stacked_slot, synth_clip
+    devs = mesh_devices()
+    label = (f"{len(devs)} cards" if len(set(devs)) > 1
+             else "cuda:0 twice (logical shards of one card)")
+    torch.cuda.synchronize()
+    xtt.reset_kernel_launches()
+    t0 = time.perf_counter()
+    try:
+        res = D.dryrun_multichip(devices=devs)
+    except RuntimeError as e:
+        fail(str(e))
+    torch.cuda.synchronize()
+    wall_a = time.perf_counter() - t0
+    launches_a = xtt.kernel_launches()
+    print(f"multichip (a) dryrun_multichip on {label}: {res} in "
+          f"{wall_a:.3f} s; launches {launches_a}")
+
+    frame = synth_clip(W, H, torch.device("cuda"))
+    f0, f1 = (stacked_slot(frame, t, S_MAIN) for t in (0, 1))
+    args = f1 + (MC.make_ref_planes(f0[0]), MC.pad_chroma(f0[1]),
+                 MC.pad_chroma(f0[2]))
+    step = (D.QP, D.QPC, D.LAMBDA, W // 16, H // 16, D.ME_RANGE,
+            D.MV_RANGE, True)
+    mesh = M.make_stream_mesh(devs)
+    torch.cuda.synchronize()
+    xtt.reset_kernel_launches()
+    t0 = time.perf_counter()
+    sharded = M.encode_p_pipeline_batched(*M.shard_streams(mesh, *args),
+                                          *step)
+    torch.cuda.synchronize()
+    wall_sh = time.perf_counter() - t0
+    launches = xtt.kernel_launches()
+    t0 = time.perf_counter()
+    single = M.encode_p_pipeline_batched(*args, *step)
+    torch.cuda.synchronize()
+    wall_1 = time.perf_counter() - t0
+    pairs = [(f"out {k}", sharded[0][k], single[0][k]) for k in single[0]]
+    pairs += [(f"ref {i}", a, b)
+              for i, (a, b) in enumerate(zip(sharded[1], single[1]))]
+    differ = [n for n, a, b in pairs
+              if not torch.equal(a.gather("cuda:0"), b)]
+    worst = min(psnr(single[0]["recon_y"][s].cpu().numpy(),
+                     f1[0][s].cpu().numpy()) for s in range(S_MAIN))
+    print(f"multichip (b) P pipeline (ESA) {W}x{H} S={S_MAIN} on {label}: "
+          f"sharded {wall_sh:.3f} s, unsharded on cuda:0 {wall_1:.3f} s; "
+          f"{len(pairs)} outputs identical={not differ}; worst luma PSNR "
+          f"{worst:.2f} dB; launches (sharded) {launches}")
+    if differ:
+        fail(f"multichip: sharded outputs differ from unsharded: {differ}")
+    missing = [k for k in ("sad_surfaces_8x8", "luma_windows",
+                           "chroma_windows", "deblock") if launches[k] <= 0]
+    if missing:
+        fail(f"kernels of the multichip path never launched: {missing}")
+    if worst < 30.0:
+        fail("multichip output is wrong (PSNR < 30 dB)")
+    return launches
+
+
 def main() -> None:
     sys.path.insert(0, str(ROOT))
     try:
@@ -1298,6 +1506,7 @@ def main() -> None:
     phase(9, encoder_cbr_path)
     refs_launches = phase(10, encoder_refs_path)
     slices_launches = phase(11, encoder_slices_path)
+    phase(12, multichip_path)
     print("phase walls s: " + " ".join(f"{n}:{w:.1f}"
                                        for n, w in walls.items())
           + f" total {sum(walls.values()):.1f}")

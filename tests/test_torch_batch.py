@@ -160,6 +160,8 @@ def test_package_imports_no_jax():
             "from x264dsp_tpu_torch.encoder import core, inter_frame, "
             "intra_frame; from x264dsp_tpu_torch.ops import deblock, mc, "
             "mcgather, me_sad, pixel, residual_plane, transforms, intra; "
+            "from x264dsp_tpu_torch.parallel import dryrun, mesh; "
+            "from x264dsp_tpu_torch.entropy import cabac_device; "
             "print('jax' in sys.modules)")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)

@@ -721,3 +721,56 @@ def test_aq_log2_card_equals_cpu(cuda):
     got = TRC.aq_offsets(*(torch.from_numpy(a).to(cuda) for a in planes),
                          1.0, 5, 4)
     assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_stream_mesh_card_equals_cpu(cuda):
+    """The P pipeline (ESA) of 4 streams over a mesh of the card twice
+    equals the same over a CPU mesh, output for output, and launches K4,
+    K2a, K2b and K3 once per shard."""
+    from x264dsp_tpu_torch.parallel import dryrun as D
+    from x264dsp_tpu_torch.parallel import mesh as M
+    planes = [D.synthetic_planes(64, 48, 4, seed) for seed in (0, 1)]
+    refs = [TMC.make_ref_planes(torch.from_numpy(planes[0][0])),
+            TMC.pad_chroma(torch.from_numpy(planes[0][1])),
+            TMC.pad_chroma(torch.from_numpy(planes[0][2]))]
+    args = [torch.from_numpy(a) for a in planes[1]] + refs
+    out = {}
+    for devs in (["cuda:0"] * 2, ["cpu"] * 2):
+        mesh = M.make_stream_mesh(devs)
+        xtt.reset_kernel_launches()
+        out[devs[0]] = M.encode_p_pipeline_batched(
+            *M.shard_streams(mesh, *args), D.QP, D.QPC, D.LAMBDA, 4, 3,
+            D.ME_RANGE, D.MV_RANGE, True)
+        launches = xtt.kernel_launches()
+        if devs[0] == "cuda:0":
+            assert all(launches[k] == n for k, n in (
+                ("sad_surfaces_8x8", 2), ("luma_windows", 2),
+                ("chroma_windows", 4), ("deblock", 2)))
+    (card, card_refs), (cpu, cpu_refs) = out["cuda:0"], out["cpu"]
+    for k in cpu:
+        assert torch.equal(card[k].gather("cpu"), cpu[k].gather("cpu")), k
+    for a, b in zip(card_refs, cpu_refs):
+        assert torch.equal(a.gather("cpu"), b.gather("cpu"))
+
+
+@pytest.mark.gpu
+def test_residual_ops_frame_card_equals_cpu(cuda):
+    """The device CABAC front half on the card gives the CPU's ops,
+    offsets and flag on a random 1080p-wide band of 4 MB rows, levels up
+    to 40."""
+    from x264dsp_tpu_torch.entropy.cabac_device import residual_ops_frame
+    rng = np.random.default_rng(9)
+    mb_h, mb_w = 4, 120
+    n = mb_h * mb_w
+
+    def lv(shape):
+        a = rng.integers(-40, 41, shape) * (rng.random(shape) < 0.3)
+        return torch.from_numpy(a.astype(np.int32))
+    args = [lv((n, 16, 16)), lv((n, 16)), lv((n, 2, 4)), lv((n, 2, 4, 16)),
+            torch.from_numpy(rng.random(n) < 0.5)]
+    want = residual_ops_frame(*args, mb_h, mb_w, 1 << 20)
+    got = residual_ops_frame(*(a.to(cuda) for a in args), mb_h, mb_w,
+                             1 << 20)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)

@@ -151,6 +151,16 @@ def lib() -> _Kernels:
     return _lib
 
 
+_count_lock = threading.Lock()
+
+
+def count_launch(counts: dict, name: str) -> None:
+    """Add one launch of kernel `name` to a wrapper module's counts (under
+    a lock: the stream mesh launches from one thread per device)."""
+    with _count_lock:
+        counts[name] += 1
+
+
 def check(code: int, name: str) -> None:
     if code != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "

@@ -2,15 +2,12 @@
 (``csrc/host/entropy.cpp``).
 
 Copied from x264dsp_tpu/entropy/native.py (the C++ source byte for byte
-from x264dsp_tpu/entropy/native/entropy.cpp), with three differences:
+from x264dsp_tpu/entropy/native/entropy.cpp), with two differences:
 - g++ builds the library at first use into the checkout's ``build/native/``
   (listed in ``.gitignore``), named by a hash of the source and renamed
   into place atomically, so two checkouts or two processes never share or
   race on one file;
-- a failed build raises: there is no Python-writer fallback;
-- ``write_slice_cabac`` takes no device-binarized residual stream (the
-  JAX package's ``res_ops`` front half, entropy/cabac_device.py, is not
-  ported: the C++ writer binarizes every block itself).
+- a failed build raises: there is no Python-writer fallback.
 """
 
 from __future__ import annotations
@@ -205,14 +202,20 @@ def write_slice_p(header_bits: tuple, mb_w: int, mb_h: int, qp: int,
 
 def write_slice_cabac(header: bytes, mb_w: int, mb_h: int, qp: int,
                       frame_idx: int, is_p: bool, syn: dict, qp_mb=None,
-                      n_ref: int = 1, row_bits=None):
+                      n_ref: int = 1, row_bits=None, res_ops=None,
+                      res_off=None):
     """C++ CABAC slice body. header must be byte-aligned (the
     cabac_alignment_one_bit already written). Returns (payload, counts)
     with counts the MBs coded as [I_16x16, I_4x4, P_L0, P_SKIP, P_16x8,
     P_8x16, P_8x8]. row_bits: as in write_slice_i / _p, an optional
     np.int64 (mb_h,) out-array of cumulative end-of-row bit positions
     (x264dsp_tpu/entropy/native.py:140-146; x264_cabac_pos, so a slice
-    starts at 1 bit)."""
+    starts at 1 bit).
+
+    res_ops/res_off: optional device-binarized residual op stream +
+    (mb_w*mb_h*27+1) per-block-slot offsets (entropy/cabac_device.py);
+    when given, the writer consumes pre-binarized residual bins instead
+    of re-binarizing on the host (byte-identical)."""
     lib = get_lib()
     cap = mb_w * mb_h * 1024 + len(header) + 4096
     out = _out_buf(cap)
@@ -251,7 +254,15 @@ def write_slice_cabac(header: bytes, mb_w: int, mb_h: int, qp: int,
     args.append(_qp_arg(keep, syn.get("ref") if is_p else None))
     args.append(ctypes.c_int(n_ref))
     args.append(_row_bits_arg(row_bits))
-    args.append(ctypes.c_void_p(0))         # res_ops: not ported
-    args.append(ctypes.c_void_p(0))         # res_off
+    if res_ops is not None and res_off is not None:
+        ops_arr = np.ascontiguousarray(res_ops, np.int16)
+        off_arr = np.ascontiguousarray(res_off, np.int32)
+        assert off_arr.shape[0] == mb_w * mb_h * 27 + 1
+        keep += [ops_arr, off_arr]
+        args.append(ops_arr.ctypes.data_as(ctypes.c_void_p))
+        args.append(off_arr.ctypes.data_as(ctypes.c_void_p))
+    else:
+        args.append(ctypes.c_void_p(0))
+        args.append(ctypes.c_void_p(0))
     n = lib.x264tpu_write_slice_cabac(*args)
     return out[:n].tobytes(), counts

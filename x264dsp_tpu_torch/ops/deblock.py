@@ -379,7 +379,7 @@ def deblock_frame_cuda(y, u, v, bs, intra_mb, first_edge_only, qp, qpc,
         _row_sync(2 * S * mb_h, y.device).data_ptr(), S, mb_h, mb_w,
         int(alpha_off), int(beta_off), _build.stream_ptr(y.device))
     _build.check(code, "x264t_deblock")
-    launches["deblock"] += 1
+    _build.count_launch(launches, "deblock")
     return oy, ou, ov
 
 
@@ -520,7 +520,7 @@ def filter_regions_cuda(regy, regc, tc0y, tcc, eny, uiy, enc, uic,
         oy.data_ptr(), oc.data_ptr(), *ptrs, K,
         _build.stream_ptr(regy.device))
     _build.check(code, "x264t_filter_regions")
-    launches["filter_regions"] += 1
+    _build.count_launch(launches, "filter_regions")
     return oy, oc
 
 
@@ -602,7 +602,7 @@ def deblock_wave_luma_cuda(y, tc0y, eny, uiy, aly, bly, mb_w: int,
         _row_sync(S * mb_h, y.device).data_ptr(), S, mb_h, mb_w, K,
         _build.stream_ptr(y.device))
     _build.check(code, "x264t_deblock_wave_luma")
-    launches["deblock_wave_luma"] += 1
+    _build.count_launch(launches, "deblock_wave_luma")
     return oy
 
 
@@ -625,7 +625,7 @@ def deblock_wave_chroma_cuda(u, v, tcc, enc, uic, alc, blc, mb_w: int,
         _row_sync(S * mb_h, u.device).data_ptr(), S, mb_h, mb_w, K2 // 2,
         _build.stream_ptr(u.device))
     _build.check(code, "x264t_deblock_wave_chroma")
-    launches["deblock_wave_chroma"] += 1
+    _build.count_launch(launches, "deblock_wave_chroma")
     return ou, ov
 
 

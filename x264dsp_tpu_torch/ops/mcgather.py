@@ -73,7 +73,7 @@ def luma_windows_cuda(ref4, mb_w: int, mb_h: int):
         ref4.data_ptr(), out.data_ptr(), S, mb_h, mb_w, Hp, Wp, M_LUMA,
         MC.PAD_MC, _build.stream_ptr(ref4.device))
     _build.check(code, "x264t_luma_windows")
-    launches["luma_windows"] += 1
+    _build.count_launch(launches, "luma_windows")
     return out
 
 
@@ -91,7 +91,7 @@ def chroma_windows_cuda(refc, mb_w: int, mb_h: int):
         refc.data_ptr(), out.data_ptr(), S, mb_h, mb_w, Hc, Wc, M_CHROMA,
         MC.PAD_MC // 2, _build.stream_ptr(refc.device))
     _build.check(code, "x264t_chroma_windows")
-    launches["chroma_windows"] += 1
+    _build.count_launch(launches, "chroma_windows")
     return out
 
 

@@ -91,7 +91,7 @@ def sad_cost_surface16_lanes_cuda(fenc_y, strips, mb_w: int, mb_h: int,
         fenc_y.data_ptr(), strips.data_ptr(), out.data_ptr(), S, mb_h, mb_w,
         R, _build.stream_ptr(fenc_y.device))
     _build.check(code, "x264t_sad_surface16")
-    launches["sad_surface16"] += 1
+    _build.count_launch(launches, "sad_surface16")
     return out
 
 
@@ -137,7 +137,7 @@ def sad_cost_surfaces_8x8_cuda(fenc_y, strips, mb_w: int, mb_h: int,
         fenc_y.data_ptr(), strips.data_ptr(), out.data_ptr(), S, mb_h, mb_w,
         R, _build.stream_ptr(fenc_y.device))
     _build.check(code, "x264t_sad_surfaces_8x8")
-    launches["sad_surfaces_8x8"] += 1
+    _build.count_launch(launches, "sad_surfaces_8x8")
     return out
 
 

@@ -498,7 +498,7 @@ def payload_vs_writers(be):
     return [int(b) for b in bits]
 
 
-def cabac_twin(param, run, frames, n: int):
+def cabac_twin(param, run, frames, n: int, keep=None):
     """Hold a CABAC Encoder run to its CAVLC twin over its first n frames.
     `run` is encode_clip's result for `frames` under `param` (CABAC, no
     forced fields). The twin (CAVLC, keep_syntax, on the device of
@@ -514,7 +514,9 @@ def cabac_twin(param, run, frames, n: int):
         twin's slice header fields (frame_num, idr_pic_id, the input frame
         counter), must give the run's slice NAL byte for byte.
     Returns each frame's device payload bits; raises RuntimeError on the
-    first difference."""
+    first difference. `keep`, a list, gets one dict per frame: the
+    device syntax ("syn", S = 1), its host copy ("host"), "is_p" and
+    "qp"."""
     import copy
 
     from .. import params as P
@@ -547,6 +549,9 @@ def cabac_twin(param, run, frames, n: int):
         is_p = slot["slice_type"] == P.SLICE_TYPE_P
         host = {k: v[0].cpu().numpy() for k, v in slot["syn"].items()
                 if torch.is_tensor(v) and not k.startswith("recon")}
+        if keep is not None:
+            keep.append({"syn": slot["syn"], "host": host, "is_p": is_p,
+                         "qp": po.i_frame_qp})
         is_idr = po.i_frame_type == P.TYPE_IDR
         # an IDR resets frame_num before its slice header is written
         writer.frame_num = 0 if is_idr else fields[0]
