@@ -215,20 +215,22 @@ def test_dryrun_section_4_encoder_slices(runs):
 
 def test_distinct_devices_run_in_their_own_threads(planes):
     """A mesh of two distinct devices ("cpu" and "cpu:0" compare unequal)
-    runs each shard from its own host thread; the result is the
-    single-device one."""
+    runs each shard from its own host thread, on every call (a thread
+    pool would reuse an idle thread when the first shard ends before the
+    second is handed out); the result is the single-device one."""
     frames, _ = planes
     mesh = TM.make_stream_mesh(["cpu", "cpu:0"])
-    seen = []
-
-    def fn(y):
-        seen.append(threading.get_ident())
-        return TMC.make_ref_planes(y)
     (y,) = TM.shard_streams(mesh, torch.from_numpy(frames[0][0]))
-    got = TM.map_streams(fn, y)
-    assert len(set(seen)) == 2 and threading.get_ident() not in seen
     want = TMC.make_ref_planes(torch.from_numpy(frames[0][0]))
-    np.testing.assert_array_equal(TD.host(got), want.numpy())
+    for _ in range(20):
+        seen = []
+
+        def fn(y):
+            seen.append(threading.get_ident())
+            return TMC.make_ref_planes(y)
+        got = TM.map_streams(fn, y)
+        assert len(set(seen)) == 2 and threading.get_ident() not in seen
+        np.testing.assert_array_equal(TD.host(got), want.numpy())
 
 
 def test_launch_counts_lose_no_update_across_threads():

@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
-from concurrent.futures import ThreadPoolExecutor
+import threading
 from dataclasses import dataclass
 
 import torch
@@ -118,20 +118,41 @@ def map_shards(fn, *args) -> list:
     for i, dev in enumerate(mesh.devices):
         by_device.setdefault(dev, []).append(i)
     out = [None] * mesh.size
+    errors = [None] * mesh.size
 
-    def run(dev, shards):
+    def run(dev, shards, ready=None):
         ctx = (torch.cuda.device(dev) if dev.type == "cuda"
                else contextlib.nullcontext())
-        with ctx:
-            for i in shards:
-                out[i] = fn(*(a.shards[i] if isinstance(a, Sharded) else a
-                              for a in args))
+        i = shards[0]
+        try:
+            if ready is not None:
+                ready.wait()
+            with ctx:
+                for i in shards:
+                    out[i] = fn(*(a.shards[i] if isinstance(a, Sharded)
+                                  else a for a in args))
+        except BaseException as e:  # raised again by the calling thread
+            errors[i] = e
     if len(by_device) == 1:
         run(*next(iter(by_device.items())))
     else:
-        with ThreadPoolExecutor(len(by_device)) as pool:
-            for f in [pool.submit(run, d, s) for d, s in by_device.items()]:
-                f.result()
+        # Each device's thread runs its shards only once every device has
+        # its thread: all devices are driven at once, and no thread ends
+        # before the others start (an ended thread's ident can be reused).
+        ready = threading.Barrier(len(by_device))
+        threads = [threading.Thread(target=run, args=(d, s, ready))
+                   for d, s in by_device.items()]
+        try:
+            for t in threads:
+                t.start()
+        except BaseException:
+            ready.abort()
+            raise
+        for t in threads:
+            t.join()
+    for e in errors:
+        if e is not None:
+            raise e
     return out
 
 
