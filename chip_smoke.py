@@ -5,11 +5,15 @@ Phases (any failure exits non-zero):
      nvcc per source, all started together);
   2. each hand-written kernel (K1 SAD surface, K2a/K2b MC windows, K3
      deblock, K4 quadrant SAD surfaces, K5a/K5b wave deblock, K6 region
-     filter) against its plain PyTorch version at the 1920x1088 shapes
+     filter, the DIA / HEX full-pel walk) against its plain PyTorch
+     version at the 1920x1088 shapes
      (R = 16, S = 8; K6 at one full diagonal of all streams, 480
      regions; K1, K2a, K2b, K3 also at S = 1, phase 8's shapes, K4 at
      phase 10's, and K1, K2a, K2b at phase 11's: the four 17-row slice
-     bands of one 1080p frame on the stream axis), exact equality, with
+     bands of one 1080p frame on the stream axis; the walk at the
+     benchmark cells' shapes, a P frame's three walks per call: DIA over
+     K1's lanes at S = 32 and HEX over the classic layout at S = 16),
+     exact equality, with
      CUDA-event times over back-to-back calls (ms: the host's time
      where a call's wrapper and launch take longer than the kernel, as
      K6's do), the kernel's own device time
@@ -137,7 +141,8 @@ Phases (any failure exits non-zero):
      Requires K4, K2a, K2b and K3 launches in the sharded run.
 Phases 4 to 12 each set the launch counters to 0 just before they drive
 the encoder and read them just after; a kernel of the path that was
-never launched fails the run. The line before the last is the kernels'
+never launched fails the run (the walk in every phase that searches
+with DIA or HEX: 4, 5, 6, 8, 9, 10 and 11). The line before the last is the kernels'
 JSON record; the last line is {"ok": true, "device": {...}}. Imports
 nothing of JAX and nothing of the JAX package.
 """
@@ -155,6 +160,7 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 W, H, S_MAIN, QP, KEYINT = 1920, 1088, 8, 26, 50
 R = 16
+WALKS = 3           # full-pel walks per DIA / HEX P frame
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM bytes/s, and
 # int32 operations/s outside the tensor cores: 132 SMs x 64 int32 lanes x
 # 1.98 GHz, half the fp32 rate of 67 TFLOP/s (132 x 128 lanes x 2 x 1.98)
@@ -462,9 +468,72 @@ def kernel_checks():
                           10, 3, (nbytes(*regs) + nbytes(regy, regc), 0)))
         return [c + (S,) for c in cases], p_args, i_args
 
+    def walk_cases():
+        """The full-pel walk at the benchmark cells' shapes: DIA over K1's
+        lanes at S = 32 (superfast-pan-s32) and HEX over the classic
+        layout at S = 16 (faster-split-s16), lambda at QP 26, the legal
+        range at mv_range 512. One call is a P slot's WALKS walks (zero
+        MVP, then two from the field before). Each MB's surface is a bowl
+        around a target up to R + 2 away plus noise, so walks run up to
+        the step cap. The bound counts each surface read of the per-MB
+        walks once (4 bytes), the lambdas, fields and outputs."""
+        from x264dsp_tpu_torch import params as XP
+        from x264dsp_tpu_torch.encoder.core import LAMBDA_TAB
+        from x264dsp_tpu_torch.encoder.inter_frame import fullpel_bounds
+        from x264dsp_tpu_torch.ops import me_walk as ME
+        bounds = fullpel_bounds(mb_w, mb_h, 512, dev)
+        off = torch.arange(-R, R + 1, device=dev, dtype=torch.int32)
+        out = []
+        for S, method, lanes, tag in ((32, XP.ME_DIA, True, "DIA,lanes"),
+                                      (16, XP.ME_HEX, False, "HEX,classic")):
+            g = torch.Generator(device=dev).manual_seed(S)
+            shape = (S, mb_h, mb_w, 1, 1)
+
+            def draw(lo, hi):
+                return torch.randint(lo, hi, shape, device=dev, generator=g,
+                                     dtype=torch.int32)
+            tx, ty, a, b = draw(-R - 2, R + 3), draw(-R - 2, R + 3), \
+                draw(1, 200), draw(1, 200)
+            surf = a * (off[None, :] - tx).abs() + b * (off[:, None]
+                                                        - ty).abs()
+            surf += (torch.rand(surf.shape, device=dev, generator=g)
+                     * (draw(0, 10) * torch.maximum(a, b))).int()
+            if lanes:
+                surf = surf.permute(0, 1, 3, 4, 2)
+            surf = surf.clamp(max=65280).contiguous()
+            del tx, ty, a, b
+            lam = torch.full((S, mb_h, mb_w), int(LAMBDA_TAB[QP]),
+                             dtype=torch.int32, device=dev)
+
+            def chain(fn, s=surf, lanes=lanes, lam=lam, method=method):
+                best = None
+                for _ in range(WALKS):
+                    best, cost, mvp = fn(s, lanes, lam, bounds, best, R,
+                                         method)[:3]
+                return best, cost, mvp
+            best, reads = None, 0
+            for _ in range(WALKS):
+                best, _, _, r = ME.pattern_walk_plain(
+                    surf, lanes, lam, bounds, best, R, method,
+                    count_reads=True)
+                reads += r
+            n_mb = S * mb_h * mb_w
+            print(f"pattern_walk[S={S},{tag}]: {reads} surface reads in "
+                  f"{WALKS} walks, {reads / n_mb / WALKS:.2f} per MB and "
+                  "walk")
+            out.append((
+                f"pattern_walk[S={S},{tag}]",
+                "x264dsp_tpu_torch/csrc/me_walk.cu",
+                "none (x264dsp_tpu/encoder/inter_frame.py:349 is plain JAX)",
+                lambda c=chain: c(ME.pattern_walk_cuda),
+                lambda c=chain: c(ME.pattern_walk_plain), None, 10, 1,
+                (4 * reads + WALKS * 24 * n_mb + (WALKS - 1) * 8 * n_mb, 0),
+                S))
+        return out
+
     rng = np.random.default_rng(2024)
     cases, p_args, i_args = cases_at(S_MAIN, rng)
-    cases += cases_at(1, rng)[0] + band_cases(rng)
+    cases += cases_at(1, rng)[0] + band_cases(rng) + walk_cases()
 
     for (name, src, replaces, kern, plain, lib, reps, preps, work,
          S) in cases:
@@ -479,7 +548,10 @@ def kernel_checks():
             fail(f"the library call for {name} computes another function")
         del got, want
         ms = time_cuda(kern, reps)
-        dev_ms = device_ms(kern, name.split("[")[0] + "_kernel", reps)
+        # device_ms is per launch; a walk case's call is WALKS launches
+        per_call = WALKS if name.startswith("pattern_walk") else 1
+        dev_ms = per_call * device_ms(kern, name.split("[")[0] + "_kernel",
+                                      reps, per_call)
         plain_ms = time_cuda(plain, preps) if preps else once_ms
         library_ms = time_cuda(lib, reps) if lib is not None else None
         bound_ms, bound_by = bound(*work)
@@ -764,7 +836,8 @@ def slices_card_vs_cpu():
         pics = runs["cpu"]["pics"]
         slices = [[b for t, b in nl if t in (P.NAL_SLICE, P.NAL_SLICE_IDR)]
                   for nl in runs["cpu"]["nals"]]
-        need = ("sad_surface16", "luma_windows", "chroma_windows", "deblock")
+        need = ("sad_surface16", "pattern_walk", "luma_windows",
+                "chroma_windows", "deblock")
         if name == "refs2":
             need += ("sad_surfaces_8x8",)
         print(f"card vs CPU, Encoder slices {name} {w}x{h}, {len(clip0)} "
@@ -924,8 +997,9 @@ def main_path(n_p: int = 4):
     batches = [stacked_slot(frame, t, S_MAIN) for t in range(1 + n_p)]
     param = main_path_param(W, H, QP, KEYINT)
     launches, _, slots, _ = drive("main path", param, batches,
-                                  ("sad_surface16", "luma_windows",
-                                   "chroma_windows", "deblock"))
+                                  ("sad_surface16", "pattern_walk",
+                                   "luma_windows", "chroma_windows",
+                                   "deblock"))
 
     # the same slots once more with stage timing (synchronizes the device
     # at each stage); between the steps, outside the timed stages, the I
@@ -976,7 +1050,8 @@ def faster_path(n_p: int = 2):
     batches = [stacked_slot(frame, t, S_MAIN) for t in range(1 + n_p)]
     launches, summary, _, _ = drive(
         "faster-1ref", faster_1ref_param(W, H, QP, KEYINT), batches,
-        ("sad_surfaces_8x8", "luma_windows", "chroma_windows", "deblock"))
+        ("sad_surfaces_8x8", "pattern_walk", "luma_windows",
+         "chroma_windows", "deblock"))
     if n_partitioned(summary) <= 0:
         fail("faster-1ref coded no 16x8, 8x16 or 8x8 MB")
     return launches
@@ -995,7 +1070,7 @@ def routes_path(main_slots):
     launches, _, slots, _ = drive(
         "deblock routes", main_path_param(W, H, QP, KEYINT), batches,
         ("deblock_wave_luma", "deblock_wave_chroma", "filter_regions",
-         "deblock"), routes=routes)
+         "deblock", "pattern_walk"), routes=routes)
     if slots != main_slots[:len(routes)]:
         fail("the wave / region deblock routes changed the main path's "
              "bytes")
@@ -1098,8 +1173,8 @@ def encoder_path(n_p: int = 3):
           f"{[po.i_frame_qp for po in pics]} bytes {sizes} frame walls ms "
           f"{[round(m, 2) for m in enc.ms[:len(frames)]]}")
     print(f"kernel launches in encoder: {launches}")
-    missing = [k for k in ("sad_surface16", "luma_windows", "chroma_windows",
-                           "deblock") if launches[k] <= 0]
+    missing = [k for k in ("sad_surface16", "pattern_walk", "luma_windows",
+                           "chroma_windows", "deblock") if launches[k] <= 0]
     if missing:
         fail(f"kernels of the encoder never launched: {missing}")
     worst = min(psnr(po.y, f[0].cpu().numpy()) for po, f in zip(pics, frames))
@@ -1254,8 +1329,8 @@ def encoder_cbr_path(n_slate: int = 4, n_clip: int = 5):
               + (f" buffering period delay {rec['bp'][0]} offset "
                  f"{rec['bp'][1]}" if rec["bp"] else ""))
     print(f"kernel launches in encoder-cbr: {launches}")
-    missing = [k for k in ("sad_surface16", "luma_windows", "chroma_windows",
-                           "deblock") if launches[k] <= 0]
+    missing = [k for k in ("sad_surface16", "pattern_walk", "luma_windows",
+                           "chroma_windows", "deblock") if launches[k] <= 0]
     if missing:
         fail(f"kernels of encoder-cbr never launched: {missing}")
     worst = min(psnr(po.y, f[0].cpu().numpy())
@@ -1322,7 +1397,8 @@ def encoder_refs_path(n_p: int = 4):
     print(f"encoder-refs ref histogram {summary.get('ref_histogram')}")
     print(f"kernel launches in encoder-refs: {launches}")
     missing = [k for k in ("sad_surface16", "sad_surfaces_8x8",
-                           "luma_windows", "chroma_windows", "deblock")
+                           "pattern_walk", "luma_windows", "chroma_windows",
+                           "deblock")
                if launches[k] <= 0]
     if missing:
         fail(f"kernels of encoder-refs never launched: {missing}")
@@ -1378,8 +1454,8 @@ def encoder_slices_path(n_p: int = 2):
               f"NALs {n_slices[t]} bands {rec['slices']} device encodes "
               f"{rec['encodes']} wall {enc.ms[t]:.2f} ms")
     print(f"kernel launches in encoder-slices: {launches}")
-    missing = [k for k in ("sad_surface16", "luma_windows", "chroma_windows",
-                           "deblock") if launches[k] <= 0]
+    missing = [k for k in ("sad_surface16", "pattern_walk", "luma_windows",
+                           "chroma_windows", "deblock") if launches[k] <= 0]
     if missing:
         fail(f"kernels of encoder-slices never launched: {missing}")
     worst = min(psnr(po.y, f[0].cpu().numpy()) for po, f in zip(pics, frames))

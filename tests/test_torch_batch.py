@@ -150,7 +150,7 @@ def test_streams_decode_to_port_recon(encoded):
 
 def test_cpu_run_launches_no_kernel(encoded):
     launches = encoded[2]
-    assert len(launches) == 8
+    assert len(launches) == 9        # the eight TPU kernels and the walk
     assert all(n == 0 for n in launches.values())
 
 

@@ -16,7 +16,10 @@ from x264dsp_tpu_torch.ops import deblock as TDB
 from x264dsp_tpu_torch.ops import mc as TMC
 from x264dsp_tpu_torch.ops import mcgather as TMG
 from x264dsp_tpu_torch.ops import me_sad as TSAD
+from x264dsp_tpu_torch.ops import me_walk as TME
+from x264dsp_tpu_torch import params as TP
 from torch_lanes import random_lanes
+from torch_walk import walk_case
 
 MB_W, MB_H, R = 6, 4, 16
 
@@ -774,3 +777,123 @@ def test_residual_ops_frame_card_equals_cpu(cuda):
                              1 << 20)
     for a, b in zip(got, want):
         assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R", [4, 16])
+@pytest.mark.parametrize("cut", [False, True])
+@pytest.mark.parametrize("later", [False, True])
+@pytest.mark.parametrize("lanes", [True, False])
+@pytest.mark.parametrize("method", [TP.ME_DIA, TP.ME_HEX])
+def test_pattern_walk_kernel_matches_plain(cuda, method, lanes, later, cut,
+                                           R):
+    """The walk kernel against the lockstep walk on the same CUDA tensors:
+    DIA and HEX, K1's lanes and the classic layout, walk 1 and a later
+    walk (median MVP and four candidates from a field reaching 2R), the
+    frame's legal range or one drawn per row and column, 3 streams of
+    9x7 MBs (every frame edge), one launch."""
+    case = walk_case(3 * R + 2 * lanes + later + 5 * cut, 3, 9, 7, R, lanes,
+                     later, cut, cuda)
+    n0 = TME.launches["pattern_walk"]
+    got = TME.pattern_walk(*case, method)
+    assert TME.launches["pattern_walk"] == n0 + 1
+    want = TME.pattern_walk_plain(*case, method)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method", [TP.ME_DIA, TP.ME_HEX])
+def test_pattern_walk_kernel_chain_at_1080p(cuda, method):
+    """A P frame's three walks at 1080p (2 streams, R = 16), each walk
+    starting from the kernel's own field before, against the plain
+    chain."""
+    case = list(walk_case(11, 2, 120, 68, 16, method == TP.ME_DIA, False,
+                          False, cuda))
+    got, want = case[:], case[:]
+    for _ in range(3):
+        g = TME.pattern_walk_cuda(*got, method)
+        w = TME.pattern_walk_plain(*want, method)
+        for a, b in zip(g, w):
+            assert torch.equal(a, b)
+        got[4], want[4] = g[0], w[0]
+
+
+@pytest.mark.gpu
+def test_pattern_walk_rejects_bad_arguments(cuda):
+    """The wrapper refuses a wrong dtype, shape, layout, device, a
+    non-contiguous field and a method that is no pattern."""
+    surf, lanes, lam, bounds, prev, R = walk_case(1, 2, 5, 4, 4, True, True,
+                                                  False, cuda)
+    with pytest.raises(ValueError):
+        TME.pattern_walk_cuda(surf.long(), lanes, lam, bounds, prev, R,
+                              TP.ME_DIA)
+    with pytest.raises(ValueError):
+        TME.pattern_walk_cuda(surf, lanes, lam, bounds, prev, R + 1,
+                              TP.ME_DIA)
+    with pytest.raises(ValueError):
+        TME.pattern_walk_cuda(surf, not lanes, lam, bounds, prev, R,
+                              TP.ME_DIA)
+    with pytest.raises(ValueError):
+        TME.pattern_walk_cuda(surf, lanes, lam.cpu(), bounds, prev, R,
+                              TP.ME_DIA)
+    with pytest.raises(ValueError):
+        TME.pattern_walk_cuda(surf, lanes, lam, bounds, prev[:, :, ::2], R,
+                              TP.ME_DIA)
+    strided = prev.transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError):
+        TME.pattern_walk_cuda(surf, lanes, lam, bounds, strided, R,
+                              TP.ME_DIA)
+    with pytest.raises(ValueError):
+        TME.pattern_walk_cuda(surf, lanes, lam, bounds, prev, R, TP.ME_UMH)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("make, walks", [("main_path_param", 3),
+                                         ("faster_1ref_param", 3),
+                                         ("crf_umh_param", 0)])
+def test_batch_encoder_walk_launches_per_p_slot(cuda, make, walks):
+    """A CUDA BatchEncoder I P P run launches the walk kernel 3 times per
+    P slot under DIA (the main path) and HEX (faster-1ref), and never
+    under UMH."""
+    from x264dsp_tpu_torch.tools import mainpath
+    S, w, h = 2, 64, 48
+    rng = np.random.default_rng(6)
+    param = (mainpath.crf_umh_param(w, h, 8) if make == "crf_umh_param"
+             else getattr(mainpath, make)(w, h, 26, 8))
+    xtt.reset_kernel_launches()
+    be = xtt.BatchEncoder(param, S)
+    for _ in range(3):
+        be.encode_batch(tuple(torch.as_tensor(rng.integers(
+            0, 256, (S, hh, ww)).astype(np.uint8))
+            for hh, ww in ((h, w), (h // 2, w // 2), (h // 2, w // 2))))
+    be.close()
+    assert xtt.kernel_launches()["pattern_walk"] == 2 * walks
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method", [TP.ME_DIA, TP.ME_HEX])
+def test_decide_mvs_pattern_fullpel_stage_never_syncs(cuda, method,
+                                                      monkeypatch):
+    """decide_mvs_pattern up to its subpel refine (the bounds, the
+    lambdas, the three walks) issues no synchronizing CUDA call once its
+    per-shape tables exist: with torch's sync debug mode at "error" none
+    raises. The refine is cut off here; its diamonds still sync."""
+    from x264dsp_tpu_torch.encoder import inter_frame as TIF
+    surf, lanes, lam, _, _, R = walk_case(2, 2, 9, 7, 16,
+                                          method == TP.ME_DIA, False, False,
+                                          cuda)
+    seen = []
+    monkeypatch.setattr(TIF, "subpel_refine_batch",
+                        lambda mv_field, *a: seen.append(mv_field))
+    # the BatchEncoder's lambdas are int64
+    args = (surf, lanes, None, None, lam.long(), 9, 7, R, 512, method, 1)
+    TIF.decide_mvs_pattern(*args)       # builds the kernels and the tables
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        TIF.decide_mvs_pattern(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert torch.equal(seen[0], seen[1]) and seen[1].shape == (2, 7, 9, 2)

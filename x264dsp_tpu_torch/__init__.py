@@ -5,6 +5,7 @@ through the host C++ writer, scenecut) and the batched encoder
 (``BatchEncoder``, CAVLC) run their frame step in PyTorch, with the TPU
 Pallas kernels written by hand in CUDA C++ for Hopper (``csrc/``, built with nvcc at first use):
 the full-pel SAD surfaces (ops/me_sad.py: whole-MB and 8x8-quadrant),
+the DIA / HEX full-pel walk (ops/me_walk.py, a kernel of the port's own),
 the MC reference windows (ops/mcgather.py) and the in-loop deblock with
 its three routes (ops/deblock.py). On a CPU tensor every kernel wrapper
 runs its plain PyTorch version instead. A CAVLC slice payload is packed
@@ -37,12 +38,14 @@ from .params import (  # noqa: F401
 
 def kernel_launches() -> dict:
     """Launch counts of the hand-written CUDA kernels, by name."""
-    from .ops import deblock, mcgather, me_sad
-    return {**me_sad.launches, **mcgather.launches, **deblock.launches}
+    from .ops import deblock, mcgather, me_sad, me_walk
+    return {**me_sad.launches, **mcgather.launches, **deblock.launches,
+            **me_walk.launches}
 
 
 def reset_kernel_launches() -> None:
-    from .ops import deblock, mcgather, me_sad
-    for counts in (me_sad.launches, mcgather.launches, deblock.launches):
+    from .ops import deblock, mcgather, me_sad, me_walk
+    for counts in (me_sad.launches, mcgather.launches, deblock.launches,
+                   me_walk.launches):
         for k in counts:
             counts[k] = 0

@@ -39,6 +39,9 @@ SIGNATURES = {
         "x264t_sad_surface16": (_P, _P, _P, _I, _I, _I, _I, _P),
         "x264t_sad_surfaces_8x8": (_P, _P, _P, _I, _I, _I, _I, _P),
     },
+    "me_walk.cu": {
+        "x264t_pattern_walk": (_P,) * 11 + (_I,) * 6 + (_P,),
+    },
     "windows.cu": {
         "x264t_luma_windows": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
         "x264t_chroma_windows": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),

@@ -1,6 +1,7 @@
 """P-frame encode over a stream batch — port of
 x264dsp_tpu/encoder/inter_frame.py: ``encode_p_frame`` with up to
-REF_MAX references, the DIA or HEX pattern walk (me_method 0 or 1), the
+REF_MAX references, the DIA or HEX pattern walk (me_method 0 or 1; one
+launch of csrc/me_walk.cu per walk on the card, ops/me_walk.py), the
 UMH surface argmin (2) and the ESA exact-MVP wavefront (3), the subpel
 refine of subme 0-11, the fast P-skip probe, the 16x8/8x16/8x8
 partition analysis, the scaling lists and noise reduction.
@@ -27,20 +28,16 @@ from ..ops import deblock as DB
 from ..ops import mc as MC
 from ..ops import mcgather as MG
 from ..ops import me_sad
+from ..ops import me_walk as ME
 from ..ops import pixel as PX
 from ..ops import residual_plane as RP
 from ..ops import transforms as T
 from ..ops.devtab import device_table
+from ..ops.me_walk import (BIG, _MVBITS, _MVBITS_RANGE, _mvp_parts, mv_cost,
+                           mvp_field_parallel)
 from .intra_frame import optimize_chroma_dc
 
 _I32 = torch.int32
-BIG = 1 << 28
-
-# mv_bits = floor(log2(d+1)*2 + 2.218), cost_mv[0] = 1 bit (analyse.c:243)
-_MVBITS_RANGE = 4096
-_MVBITS = np.ones(_MVBITS_RANGE, np.int32)
-_d = np.arange(1, _MVBITS_RANGE)
-_MVBITS[1:] = (np.log2(_d + 1.0) * 2 + 1.718 + 0.5).astype(np.int32)
 
 # lambda2 table (encoder/analyse.c:113-130), QP 0..51
 LAMBDA2_TAB = np.array([
@@ -51,12 +48,6 @@ LAMBDA2_TAB = np.array([
     23407, 29491, 37156, 46814, 58982, 74313, 93628, 117964,
     148626, 187257, 235929, 297252, 374514, 471859, 594505, 749029,
     943718, 1189010, 1498059, 1887436], np.int64)
-
-# me.c hex2[] (the radius-2 hexagon), the diamond and the 8-point square
-# (inter_frame.py:305-307)
-_HEX_PTS = ((-2, 0), (-1, 2), (1, 2), (2, 0), (1, -2), (-1, -2))
-_DIA_PTS = ((0, -1), (0, 1), (-1, 0), (1, 0))
-_SQUARE_PTS = _DIA_PTS + ((-1, -1), (-1, 1), (1, -1), (1, 1))
 
 # subpel recipe per subme (inter_frame.py:654, subpel_iterations of
 # me.c:18-33 with the winner refine folded in): subme -> (hpel_iters,
@@ -78,17 +69,12 @@ SUBME_RECIPE = {
 }
 
 
-def mv_cost(lam, mvx, mvy, mvpx, mvpy):
-    bits = device_table(_MVBITS, lam.device)
-    dx = (mvx - mvpx).abs().clamp(0, _MVBITS_RANGE - 1).long()
-    dy = (mvy - mvpy).abs().clamp(0, _MVBITS_RANGE - 1).long()
-    return lam * (bits[dx] + bits[dy])
-
-
+@functools.lru_cache(maxsize=None)
 def make_mv_ranges(mb_w: int, mb_h: int, mv_range: int, device):
     """Per-MB legal qpel MV ranges (x264_mb_analyse_init,
     analyse.c:370-393): (mvmin_x, mvmax_x) (mb_w,), (mvmin_y, mvmax_y)
-    (mb_h,) int32."""
+    (mb_h,) int32. Made once per shape and device (an upload is a host
+    sync); no caller writes them."""
     fmv = mv_range * 4
     xs = np.arange(mb_w)
     ys = np.arange(mb_h)
@@ -100,49 +86,20 @@ def make_mv_ranges(mb_w: int, mb_h: int, mv_range: int, device):
                  for v in vals)
 
 
+@functools.lru_cache(maxsize=None)
+def fullpel_bounds(mb_w: int, mb_h: int, mv_range: int, device):
+    """The full-pel offsets each MB's search may take: its legal range
+    less the reference's 6-pixel border (inter_frame.py:604-614): lo_x,
+    hi_x (mb_w,), lo_y, hi_y (mb_h,) int32."""
+    mvmin_x, mvmax_x, mvmin_y, mvmax_y = make_mv_ranges(mb_w, mb_h,
+                                                        mv_range, device)
+    return ((mvmin_x >> 2) + 6, (mvmax_x >> 2) - 6, (mvmin_y >> 2) + 6,
+            (mvmax_y >> 2) - 6)
+
+
 def _clip(x, lo, hi):
     """jnp.clip order: max with lo first, then min with hi."""
     return torch.minimum(torch.maximum(x, lo), hi)
-
-
-def _median3(a, b, c):
-    return a + b + c - torch.minimum(a, torch.minimum(b, c)) \
-        - torch.maximum(a, torch.maximum(b, c))
-
-
-def _shift(field, dy: int, dx: int):
-    """field (S, mb_h, mb_w, ...) -> value of the neighbour at (y-dy,
-    x-dx) and its in-frame flag (mb_h, mb_w); zero outside."""
-    mb_h, mb_w = field.shape[1:3]
-    m = torch.roll(field, (dy, dx), dims=(1, 2))
-    ys = torch.arange(mb_h, device=field.device)[:, None]
-    xs = torch.arange(mb_w, device=field.device)[None, :]
-    ok = ((ys - dy >= 0) & (ys - dy < mb_h) & (xs - dx >= 0)
-          & (xs - dx < mb_w))
-    okb = ok.reshape((1, mb_h, mb_w) + (1,) * (field.dim() - 3))
-    return torch.where(okb, m, 0), ok
-
-
-def _mvp_parts(mv_field):
-    """Neighbour MVs A (left), B (top), C (top-right, else top-left)
-    with availability (common/mvpred.c:103-137)."""
-    mv_a, ok_a = _shift(mv_field, 0, 1)
-    mv_b, ok_b = _shift(mv_field, 1, 0)
-    mv_c, ok_c = _shift(mv_field, 1, -1)
-    mv_d, ok_d = _shift(mv_field, 1, 1)
-    mv_c = torch.where(ok_c[None, ..., None], mv_c, mv_d)
-    ok_c = ok_c | ok_d
-    return mv_a, ok_a, mv_b, ok_b, mv_c, ok_c
-
-
-def mvp_field_parallel(mv_field):
-    """Median MVP of every MB from a given MV field (S, mb_h, mb_w, 2)."""
-    mv_a, ok_a, mv_b, ok_b, mv_c, ok_c = _mvp_parts(mv_field)
-    count = ok_a.to(_I32) + ok_b.to(_I32) + ok_c.to(_I32)
-    med = _median3(mv_a, mv_b, mv_c)
-    single = torch.where(ok_a[None, ..., None], mv_a,
-                         torch.where(ok_b[None, ..., None], mv_b, mv_c))
-    return torch.where((count == 1)[None, ..., None], single, med)
 
 
 def pskip_mv_field(mv_field):
@@ -155,99 +112,6 @@ def pskip_mv_field(mv_field):
     return torch.where(zero[..., None], 0, mvp)
 
 
-class _Surface:
-    """Reads of a full-pel 16x16 SAD surface at per-MB offsets: in K1's
-    lane layout (S, mb_h, n, n, mb_w) or in the classic layout (S, mb_h,
-    mb_w, n, n) of the quadrant sums. Returns the raw cost (legal-range
-    masked) or the cost biased by lambda * mvbits(mv - mvp). Equal to the
-    JAX path's where(ok, surf [+ bias], 1<<28) surfaces read at the same
-    points; out-of-surface points cost 1<<28."""
-
-    def __init__(self, surf, lanes: bool, lam, R, lo_x, hi_x, lo_y, hi_y):
-        S, mb_h = surf.shape[:2]
-        n = 2 * R + 1
-        self.dim = 2 if lanes else 3            # the axis of the offsets
-        shape = (S, mb_h, n * n, -1) if lanes else (S, mb_h, -1, n * n)
-        self.flat = surf.reshape(shape)
-        self.lam, self.R, self.n = lam, R, n
-        self.lo_x, self.hi_x = lo_x[None, None, :], hi_x[None, None, :]
-        self.lo_y, self.hi_y = lo_y[None, :, None], hi_y[None, :, None]
-
-    def at(self, bx, by, mvp=None):
-        R, n = self.R, self.n
-        idx = (by.clamp(-R, R) + R) * n + bx.clamp(-R, R) + R
-        v = torch.gather(self.flat, self.dim,
-                         idx.long().unsqueeze(self.dim)).squeeze(self.dim)
-        if mvp is not None:
-            v = v + mv_cost(self.lam, bx * 4, by * 4, mvp[..., 0],
-                            mvp[..., 1])
-        ok = ((bx >= self.lo_x) & (bx <= self.hi_x) & (by >= self.lo_y)
-              & (by <= self.hi_y))
-        inb = (bx.abs() <= R) & (by.abs() <= R)
-        return torch.where(ok & inb, v, BIG)
-
-
-def _try_candidates(surf: _Surface, mvp, bcost, bx, by, pts, gate):
-    """Strict-less acceptance of the offsets `pts` around the centre at
-    entry, in order (me.c's COPY*_IF_LT chains), on the biased surface;
-    gate (or None) masks the MBs that may move. Returns (bcost, bx, by,
-    moved)."""
-    ox, oy = bx, by
-    for dx, dy in pts:
-        cx, cy = ox + dx, oy + dy
-        c = surf.at(cx, cy, mvp)
-        better = c < bcost if gate is None else (c < bcost) & gate
-        bcost = torch.where(better, c, bcost)
-        bx = torch.where(better, cx, bx)
-        by = torch.where(better, cy, by)
-    return bcost, bx, by, (bx != ox) | (by != oy)
-
-
-def _pattern_walk(surf: _Surface, mvp, mvp_fp, mvc, me_range: int,
-                  method: int):
-    """DIA (me.c:237-274) or HEX (me.c:276-387) walk of every MB in
-    lockstep (_pattern_walk, inter_frame.py:349): the MVP costed without
-    bias, the mvc candidates and (0,0) with bias, then up to me_range
-    diamonds (DIA) or max(me_range >> 1, 1) hexagons (HEX) with per-MB
-    stop masks; HEX ends with one ungated 8-point square refine."""
-    R = me_range
-    bx = mvp_fp[..., 0].clamp(-R, R)
-    by = mvp_fp[..., 1].clamp(-R, R)
-    bcost = surf.at(bx, by)
-    for cand in (mvc or []):
-        cx = cand[..., 0].clamp(-R, R)
-        cy = cand[..., 1].clamp(-R, R)
-        c = surf.at(cx, cy, mvp)
-        better = c < bcost
-        bcost = torch.where(better, c, bcost)
-        bx = torch.where(better, cx, bx)
-        by = torch.where(better, cy, by)
-    zero = torch.zeros_like(bx)
-    zc = surf.at(zero, zero, mvp)
-    better = ((bx != 0) | (by != 0)) & (zc < bcost)
-    bcost = torch.where(better, zc, bcost)
-    bx = torch.where(better, 0, bx)
-    by = torch.where(better, 0, by)
-    pts, n_iter = ((_DIA_PTS, me_range) if method == P.ME_DIA
-                   else (_HEX_PTS, max(me_range >> 1, 1)))
-    active = torch.ones_like(bx, dtype=torch.bool)
-    for _ in range(n_iter):
-        bcost, bx, by, moved = _try_candidates(surf, mvp, bcost, bx, by, pts,
-                                               active)
-        active = active & moved
-        if not bool(active.any()):
-            break           # every walk has stopped: later steps no-op
-    if method == P.ME_HEX:
-        bcost, bx, by, _ = _try_candidates(surf, mvp, bcost, bx, by,
-                                           _SQUARE_PTS, None)
-    return bx, by, bcost
-
-
-def _neighbour_cands(fp):
-    return [fp, _shift(fp, 0, 1)[0], _shift(fp, 1, 0)[0],
-            _shift(fp, 1, -1)[0]]
-
-
 def decide_mvs_pattern(surf16, lanes: bool, fenc_y, wins4, lam, mb_w: int,
                        mb_h: int, me_range: int, mv_range: int, method: int,
                        subme: int):
@@ -258,23 +122,17 @@ def decide_mvs_pattern(surf16, lanes: bool, fenc_y, wins4, lam, mb_w: int,
     qpel MVs."""
     R = me_range
     dev = surf16.device
-    ranges = make_mv_ranges(mb_w, mb_h, mv_range, dev)
-    mvmin_x, mvmax_x, mvmin_y, mvmax_y = ranges
-    surf = _Surface(surf16, lanes, lam, R, (mvmin_x >> 2) + 6,
-                    (mvmax_x >> 2) - 6, (mvmin_y >> 2) + 6,
-                    (mvmax_y >> 2) - 6)
-    S = surf16.shape[0]
-    zero_mvp = torch.zeros((S, mb_h, mb_w, 2), dtype=_I32, device=dev)
-    bx, by, _ = _pattern_walk(surf, zero_mvp, zero_mvp, None, R, method)
+    bounds = fullpel_bounds(mb_w, mb_h, mv_range, dev)
+    lam32 = lam.to(_I32).contiguous()
+    best, bcost, mvp = ME.pattern_walk(surf16, lanes, lam32, bounds, None, R,
+                                       method)
     for _ in range(2):
-        mv_prev = torch.stack([bx * 4, by * 4], -1)
-        mvp = mvp_field_parallel(mv_prev)
-        mvp_fp = (mvp + 2) >> 2                          # me.c:141-142
-        mvc = _neighbour_cands(torch.stack([bx, by], -1))
-        bx, by, bcost = _pattern_walk(surf, mvp, mvp_fp, mvc, R, method)
-    mv_field = torch.stack([bx * 4, by * 4], -1)
-    return subpel_refine_batch(mv_field, bcost, mvp, fenc_y, wins4, lam,
-                               mb_w, mb_h, ranges, subme)
+        best, bcost, mvp = ME.pattern_walk(surf16, lanes, lam32, bounds, best,
+                                           R, method)
+    return subpel_refine_batch(best * 4, bcost, mvp, fenc_y, wins4, lam,
+                               mb_w, mb_h,
+                               make_mv_ranges(mb_w, mb_h, mv_range, dev),
+                               subme)
 
 
 def _legal_offsets(mb_w: int, mb_h: int, me_range: int, mv_range: int, dev):
@@ -282,14 +140,14 @@ def _legal_offsets(mb_w: int, mb_h: int, me_range: int, mv_range: int, dev):
     dy, dx) mask of the offsets inside each MB's legal range less the
     reference's 6-pixel border (inter_frame.py:604-614)."""
     R = me_range
-    ranges = make_mv_ranges(mb_w, mb_h, mv_range, dev)
-    mvmin_x, mvmax_x, mvmin_y, mvmax_y = ranges
+    lo_x, hi_x, lo_y, hi_y = fullpel_bounds(mb_w, mb_h, mv_range, dev)
     offs = torch.arange(-R, R + 1, device=dev, dtype=_I32)
-    ok_x = ((offs[None, :] >= ((mvmin_x >> 2) + 6)[:, None])
-            & (offs[None, :] <= ((mvmax_x >> 2) - 6)[:, None]))  # (mb_w, n)
-    ok_y = ((offs[None, :] >= ((mvmin_y >> 2) + 6)[:, None])
-            & (offs[None, :] <= ((mvmax_y >> 2) - 6)[:, None]))  # (mb_h, n)
-    return ranges, offs, ok_y[:, None, :, None] & ok_x[None, :, None, :]
+    ok_x = ((offs[None, :] >= lo_x[:, None])
+            & (offs[None, :] <= hi_x[:, None]))                 # (mb_w, n)
+    ok_y = ((offs[None, :] >= lo_y[:, None])
+            & (offs[None, :] <= hi_y[:, None]))                 # (mb_h, n)
+    return (make_mv_ranges(mb_w, mb_h, mv_range, dev), offs,
+            ok_y[:, None, :, None] & ok_x[None, :, None, :])
 
 
 def _offset_mvs(k, n: int, R: int):

@@ -30,7 +30,7 @@ from .. import params as P
 from ..ops import mc as MC
 from ..ops import pixel as PX
 from ..ops.devtab import device_table
-from .inter_frame import _median3
+from ..ops.me_walk import _median3
 
 _I32 = torch.int32
 _I64 = torch.int64

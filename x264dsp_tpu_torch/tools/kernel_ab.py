@@ -83,9 +83,10 @@ def time_cuda(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, kernel: str, reps: int) -> float:
+def device_ms(fn, kernel: str, reps: int, per_call: int = 1) -> float:
     """Mean device time per launch of the CUDA kernel named `kernel` over
-    `reps` calls of fn, from torch.profiler's CUDA activity: the kernel's
+    `reps` calls of fn (each launching it `per_call` times), from
+    torch.profiler's CUDA activity: the kernel's
     own time, without the host time between launches that CUDA events
     over back-to-back calls include when a call's host side is the
     longer. The profiler may miss a launch at the start of its window,
@@ -109,9 +110,9 @@ def device_ms(fn, kernel: str, reps: int) -> float:
             torch.cuda.synchronize()
         ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
               and pat.search(e.name)]
-        if len(ev) > reps:
+        if len(ev) > reps * per_call:
             break
-        if len(ev) >= reps / 2:
+        if len(ev) >= reps * per_call / 2:
             return sum(e.time_range.elapsed_us() for e in ev) / len(ev) / 1e3
         print(f"profiler window {window + 1} of 3 recorded {len(ev)} "
               f"launches of {kernel} in {reps} calls", flush=True)
